@@ -1,0 +1,45 @@
+"""Spectral diagnostics of DNS runs: shell-binned energy spectra, dissipation.
+
+Port of the complex-layout part of ``mpifft4py_tpu/models/diagnostics.py``:
+E(k) shell sums over the r2c spectrum with Hermitian weights (interior k2
+modes count twice), computed on the state's device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _hermitian_weights(FFT) -> torch.Tensor:
+    """Weights over the last spectral axis: 1 for k2 = 0 and Nyquist, 2 for
+    the interior (r2c layout)."""
+    nf = FFT.global_complex_shape()[-1]
+    k = np.arange(nf)
+    w = np.where((k == 0) | (k == int(FFT.N[-1]) // 2), 1.0, 2.0)
+    return torch.as_tensor(w, dtype=torch.float32, device=FFT.device)
+
+
+def energy_spectrum(FFT, U_hat) -> np.ndarray:
+    """Shell-binned kinetic-energy spectrum E(k), k = 0..kmax, of a
+    ``(C,) + global_complex_shape()`` spectral velocity; Σ E(k) is the mean
+    kinetic energy (Parseval).  Returns a host numpy array."""
+    K = FFT.get_local_wavenumbermesh()
+    kmax = int(np.max(FFT.N) // 2)
+    ntot = float(np.prod([int(n) for n in FFT.N]))
+    kmag = torch.sqrt(torch.sum(K * K, dim=0))
+    shell = torch.clamp(torch.round(kmag).to(torch.int64), 0, kmax)
+    e = (0.5 * torch.sum(U_hat.abs() ** 2, dim=0) * _hermitian_weights(FFT)
+         / (ntot * ntot))
+    out = torch.zeros(kmax + 1, dtype=e.dtype, device=e.device)
+    return out.index_add_(0, shell.ravel(), e.ravel()).cpu().numpy()
+
+
+def dissipation(FFT, U_hat, nu: float) -> float:
+    """ε = 2ν Σ k² E(k) (physical wavenumbers)."""
+    K = FFT.get_scaled_local_wavenumbermesh()
+    ntot = float(np.prod([int(n) for n in FFT.N]))
+    k2 = torch.sum(K * K, dim=0)
+    e = (torch.sum(U_hat.abs() ** 2, dim=0) * _hermitian_weights(FFT)
+         / (ntot * ntot))
+    return float(nu * torch.sum(k2 * e))

@@ -1,0 +1,254 @@
+"""Pseudo-spectral incompressible 3D Navier–Stokes DNS, complex layout.
+
+Port of ``mpifft4py_tpu/models/navier_stokes.py`` (``SpectralSolver`` and
+``NavierStokes3D``) in the complex spectral layout.  Rotational form,
+velocity in spectral space:
+
+    dU_hat/dt = P[ F̂(U × ω) ] − ν k² U_hat,   ω = ifftn(i K × U_hat),
+    P(F̂) = F̂ − K (K·F̂)/|K|²                   (Leray projection).
+
+PyTorch runs eagerly: a step is a chain of tensor calls on the state's
+device, and ``run`` is a Python loop.  Each right-hand side does three
+batched transform calls (velocity, vorticity, nonlinear term), one launch
+sequence per 3-stack.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+_LSRK54_A = (
+    0.0,
+    -567301805773.0 / 1357537059087.0,
+    -2404267990393.0 / 2016746695238.0,
+    -3550918686646.0 / 2091501179385.0,
+    -1275806237668.0 / 842570457699.0,
+)
+_LSRK54_B = (
+    1432997174477.0 / 9575080441755.0,
+    5161836677717.0 / 13612068292357.0,
+    1720146321549.0 / 2090206949498.0,
+    3134564353537.0 / 4481467310338.0,
+    2277821191437.0 / 14882151754819.0,
+)
+
+INTEGRATORS = ("RK4", "LSRK54", "Euler", "AB2")
+
+_ITEM_PACKED = "ROADMAP.md queue 1 item 5 (packed layout, kernel rows 11-14)"
+
+
+class SpectralSolver:
+    """Shared machinery of the spectral solvers: integrators, factored
+    wavenumbers, the AB2 carry and ``run``.  Subclasses implement
+    ``rhs(state, k0, k1, k2)``."""
+
+    def _init_solver(self, FFT, dt, dealias, integrator,
+                     spectral_layout: str = "complex"):
+        if spectral_layout == "packed":
+            raise NotImplementedError(
+                f"spectral_layout='packed': see {_ITEM_PACKED}")
+        if spectral_layout != "complex":
+            raise ValueError(f"spectral_layout must be 'complex' or 'packed', "
+                             f"got {spectral_layout!r}")
+        if integrator not in INTEGRATORS:
+            raise ValueError(f"integrator must be one of {INTEGRATORS}, "
+                             f"got {integrator!r}")
+        self.FFT = FFT
+        self.dt = float(dt)
+        self.dealias = dealias
+        self.integrator = integrator
+        self.spectral_layout = spectral_layout
+        # stacks of fields ride one call per transform
+        self._fwd = FFT.forward_fields_fn(dealias=dealias)
+        self._fwd_plain = FFT.forward_fields_fn()
+        self._bwd = FFT.backward_fields_fn()
+
+    def _factored_k(self):
+        """1-D scaled wavenumbers (k0, k1, k2) matching
+        global_complex_shape(), in FFT.float: a float64 k against a
+        complex64 state would promote the state to complex128."""
+        FFT = self.FFT
+        N = [int(n) for n in FFT.N]
+        nf = FFT.global_complex_shape()[2]
+        ft = np.float32 if FFT.float == torch.float32 else np.float64
+        s = (2 * np.pi / np.asarray(FFT.L)).astype(ft)
+        k0 = np.fft.fftfreq(N[0], 1.0 / N[0]).astype(ft) * s[0]
+        k1 = np.fft.fftfreq(N[1], 1.0 / N[1]).astype(ft) * s[1]
+        k2 = np.arange(nf, dtype=ft) * s[2]
+        return tuple(torch.from_numpy(k).to(FFT.device) for k in (k0, k1, k2))
+
+    def _step_args(self):
+        if not hasattr(self, "_k_args"):
+            self._k_args = self._factored_k()
+        return self._k_args
+
+    # -- time integrators ---------------------------------------------------------
+
+    def _advance(self, rhs1, U):
+        """One step of ``self.integrator``.  AB2 state is (U, f_prev), built
+        by ``ab2_state``.  The caller's state is never written; the RK4 and
+        LSRK54 accumulators are updated in place (they are the step's own
+        tensors), so RK4 keeps one stage derivative alive, not four."""
+        dt = self.dt
+        it = self.integrator
+        if it == "RK4":
+            k = rhs1(U)
+            acc = U + (dt / 6.0) * k
+            k = rhs1(U + (0.5 * dt) * k)
+            acc.add_(k, alpha=dt / 3.0)
+            k = rhs1(U + (0.5 * dt) * k)
+            acc.add_(k, alpha=dt / 3.0)
+            k = rhs1(U + dt * k)
+            return acc.add_(k, alpha=dt / 6.0)
+        if it == "LSRK54":
+            dU = None
+            for a, b in zip(_LSRK54_A, _LSRK54_B):
+                r = rhs1(U)
+                dU = r if dU is None else r.add_(dU, alpha=a)
+                U = U + (dt * b) * dU
+            return U
+        if it == "Euler":
+            return U + dt * rhs1(U)
+        # AB2: U_{n+1} = U_n + dt (1.5 f_n − 0.5 f_{n−1})
+        Un, fprev = U
+        f = rhs1(Un)
+        return (Un + dt * (1.5 * f - 0.5 * fprev), f)
+
+    def ab2_state(self, U):
+        """(U, f(U)) for integrator='AB2': the first step reduces to Euler."""
+        if self.integrator != "AB2":
+            raise ValueError("ab2_state is only meaningful with integrator='AB2'")
+        return (U, self.rhs(U, *self._step_args()))
+
+    def step(self, state):
+        k = self._step_args()
+        return self._advance(lambda V: self.rhs(V, *k), state)
+
+    def _carry_state(self, c):
+        return c[0] if self.integrator == "AB2" else c
+
+    @staticmethod
+    def staged_mean(x):
+        """Mean over all axes by sequential per-axis sums: each partial sum
+        stays short (≤ max(N) terms), where one flat float32 sum over ~1e8
+        elements drifts ~1e-4 relative."""
+        n = float(x.numel())
+        s = x
+        for _ in range(x.ndim):
+            s = s.sum(dim=-1)
+        return s / n
+
+    def _monitor(self, S):
+        """Total Parseval energy of a spectral state (no inverse transforms)."""
+        from .diagnostics import _hermitian_weights
+        w = _hermitian_weights(self.FFT)
+        ntot = float(np.prod([int(n) for n in self.FFT.N]))
+        mag = (S.real ** 2 + S.imag ** 2) * w
+        return 0.5 * self.staged_mean(mag) * mag.numel() / (ntot * ntot)
+
+    def run(self, state, n_steps: int, monitor_every: Optional[int] = None):
+        """``n_steps`` steps.  With ``monitor_every=k`` also returns the total
+        Parseval energy every k steps, as a tensor of shape
+        ``(n_steps // k,)`` on the state's device: ``(final_state, trace)``.
+        """
+        if monitor_every is None:
+            for _ in range(n_steps):
+                state = self.step(state)
+            return state
+        k = int(monitor_every)
+        if n_steps % k:
+            raise ValueError(f"n_steps={n_steps} not divisible by "
+                             f"monitor_every={k}")
+        trace = []
+        for i in range(1, n_steps + 1):
+            state = self.step(state)
+            if i % k == 0:
+                trace.append(self._monitor(self._carry_state(state)))
+        return state, torch.stack(trace)
+
+
+class NavierStokes3D(SpectralSolver):
+    """Pseudo-spectral NS3D over a ``slab.R2C`` transform.
+
+    Args:
+      FFT: a ``slab.R2C`` instance.
+      nu: kinematic viscosity.
+      dt: timestep.
+      dealias: None | "2/3-rule", applied to the nonlinear term's forward
+        transform.
+      integrator: one of INTEGRATORS.
+      forcing_band, forcing_rate: ``(k_lo, k_hi)`` and ε of the
+        constant-energy-injection band forcing f̂ = ε·û/(2·E_band) on modes
+        k_lo ≤ |k| < k_hi.
+    """
+
+    def __init__(self, FFT, nu: float, dt: float,
+                 dealias: Optional[str] = "2/3-rule",
+                 spectral_layout: str = "complex", integrator: str = "RK4",
+                 forcing_band: Optional[tuple] = None,
+                 forcing_rate: float = 0.0):
+        self.nu = float(nu)
+        self.forcing_band = (None if forcing_band is None
+                             else (float(forcing_band[0]),
+                                   float(forcing_band[1])))
+        self.forcing_rate = float(forcing_rate)
+        self._init_solver(FFT, dt, dealias, integrator, spectral_layout)
+
+    def taylor_green(self):
+        """Taylor–Green vortex in spectral space, (3,) + global_complex_shape()."""
+        X = self.FFT.get_local_mesh()
+        u = torch.stack([
+            torch.sin(X[0]) * torch.cos(X[1]) * torch.cos(X[2]),
+            -torch.cos(X[0]) * torch.sin(X[1]) * torch.cos(X[2]),
+            torch.zeros_like(X[0]),
+        ])
+        return self._fwd_plain(u)
+
+    def rhs(self, U_hat, k0, k1, k2):
+        """dU_hat/dt from the factored 1-D wavenumbers (k0, k1, k2)."""
+        K0 = k0[:, None, None]
+        K1 = k1[None, :, None]
+        K2v = k2[None, None, :]
+        U = self._bwd(U_hat)
+        # vorticity: ω = ifftn(i K × U_hat)
+        W = self._bwd(1j * torch.stack([
+            K1 * U_hat[2] - K2v * U_hat[1],
+            K2v * U_hat[0] - K0 * U_hat[2],
+            K0 * U_hat[1] - K1 * U_hat[0]]))
+        # nonlinear term F = U × ω, transformed with dealiasing
+        F_hat = self._fwd(torch.stack([
+            U[1] * W[2] - U[2] * W[1],
+            U[2] * W[0] - U[0] * W[2],
+            U[0] * W[1] - U[1] * W[0]]))
+        del U, W
+        # Leray projection + viscous term
+        ksq = K0 * K0 + K1 * K1 + K2v * K2v
+        div = ((K0 * F_hat[0] + K1 * F_hat[1] + K2v * F_hat[2])
+               / torch.where(ksq == 0, 1, ksq))
+        dU = F_hat - torch.stack([K0 * div, K1 * div, K2v * div])
+        dU = dU - (self.nu * ksq)[None] * U_hat
+        if self.forcing_band is not None and self.forcing_rate > 0:
+            klo, khi = self.forcing_band
+            band = (ksq >= klo * klo) & (ksq < khi * khi)
+            # Hermitian half-spectrum weights: k2 = 0 and the z-Nyquist
+            # plane weigh 1, interior columns 2
+            kny = float(np.pi * int(self.FFT.N[2]) / float(self.FFT.L[2]))
+            w = torch.where((K2v == 0) | (K2v >= kny * (1.0 - 1e-6)), 1.0, 2.0)
+            ntot = float(np.prod([int(n) for n in self.FFT.N]))
+            Eb = (torch.sum(torch.where(band, w * U_hat.abs() ** 2, 0.0))
+                  / (2.0 * ntot * ntot))
+            alpha = torch.where(Eb > 0, self.forcing_rate / (2.0 * Eb), 0.0)
+            dU = dU + (alpha * band) * U_hat
+        return dU
+
+    def energy(self, U_hat) -> float:
+        """Mean kinetic energy 0.5 <|u|²> in physical space."""
+        U = self._bwd(U_hat)
+        return float(0.5 * self.staged_mean(torch.sum(U * U, dim=0)))
+
+    def rhs_with_state(self, U_hat):
+        """rhs with the stored wavenumber vectors."""
+        return self.rhs(U_hat, *self._step_args())

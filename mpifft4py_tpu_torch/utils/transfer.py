@@ -1,0 +1,54 @@
+"""Host ↔ device transfer helpers.
+
+Counterpart of ``mpifft4py_tpu/utils/transfer.py``.  CUDA moves complex
+tensors whole, so these are thin; ``state_from_reference`` hands a solver
+state from the JAX package to the port so both step the identical state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["device_put", "to_numpy", "state_from_reference"]
+
+_NP_TO_TORCH = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
+}
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _NP_TO_TORCH[np.dtype(dtype)]
+
+
+def device_put(a, dtype, device) -> torch.Tensor:
+    """A numpy array (or tensor) as a contiguous tensor of ``dtype`` on
+    ``device``."""
+    dtype = _torch_dtype(dtype)
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype).contiguous()
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor on any device as a host numpy array."""
+    return x.detach().cpu().numpy()
+
+
+def state_from_reference(U_hat_np, FFT) -> torch.Tensor:
+    """The JAX solver's complex spectral state, a numpy ``(C,) +
+    FFT.global_complex_shape()`` array of FFT's complex dtype, as the port's
+    tensor on ``FFT.device``."""
+    U = np.asarray(U_hat_np)
+    want = tuple(FFT.global_complex_shape())
+    if U.ndim != 4 or tuple(U.shape[1:]) != want:
+        raise ValueError(f"state shape {U.shape} is not (C,) + {want}")
+    if _NP_TO_TORCH.get(U.dtype) != FFT.complex:
+        raise TypeError(f"state dtype {U.dtype} does not match {FFT.complex}")
+    return device_put(U, FFT.complex, FFT.device)
