@@ -7,18 +7,24 @@ Phases, each checked; any failed check makes the exit code non-zero:
 
 0. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 1. build the CUDA kernels from ``mpifft4py_tpu_torch/ops/csrc`` (nvcc);
-2. kernels: each hand-written kernel against its ``torch.fft`` twin on the
-   card, at the shapes of the 256³ and 512³ transforms (relative 1e-5);
+2. kernels: each hand-written kernel against its plain twin on the card,
+   at the shapes of the 256³ and 512³ transforms and of the 256³ packed
+   NS3D step, the cross kernel also at a 512-class plane (relative 1e-5),
+   with each kernel's time beside its twin's;
 3. transforms: ``slab.R2C`` at 256³ and 512³ against float64
    ``torch.fft.rfftn``, the round trip, the 2/3-rule forward, and the
    round-trip time beside ``torch.fft``'s;
 4. solver: ``NavierStokes3D`` RK4 at 256³ from Taylor–Green, 5 steps,
-   against the same run in ``precision="double"``.
+   against the same run in ``precision="double"``;
+5. packed solver: the same 5 steps with ``spectral_layout="packed"``,
+   against the complex-layout float32 and float64 runs, with its ms per
+   step and peak memory beside the complex layout's.
 
-Phases 3 and 4 are the main path: the kernels' launch counters are zeroed
-before them and read after.  The second-to-last line is
-``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
-Without a CUDA device it exits 1 and prints no result.
+Phases 3–5 are the main path: each runs with the kernels' launch counters
+set to 0 just before it and read just after, and phases 4–5 also read them
+around each of their steps.  The second-to-last line is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
+prints no result.
 """
 
 import json
@@ -33,15 +39,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TAU = 2 * np.pi
 SEED = 0
 
+PALLAS = "mpifft4py_tpu/ops/pallas_fft3d.py"
+CSRC = "mpifft4py_tpu_torch/ops/csrc"
 KERNELS = {
-    # name: (source, Pallas kernel it replaces)
-    "fft_axis": ("mpifft4py_tpu_torch/ops/csrc/fft_axis.cu",
-                 "mpifft4py_tpu/ops/pallas_fft3d.py:330"),
-    "packed_rfft_last": ("mpifft4py_tpu_torch/ops/csrc/packed_rfft.cu",
-                         "mpifft4py_tpu/ops/pallas_fft3d.py:636"),
-    "packed_irfft_last": ("mpifft4py_tpu_torch/ops/csrc/packed_rfft.cu",
-                          "mpifft4py_tpu/ops/pallas_fft3d.py:849"),
+    # name: (source, Pallas kernel(s) it replaces, with their row in PERF.md)
+    "fft_axis": (f"{CSRC}/fft_axis.cu", f"{PALLAS}:330 (row 1)"),
+    "packed_rfft_last": (f"{CSRC}/packed_rfft.cu", f"{PALLAS}:636 (row 4)"),
+    "packed_irfft_last": (f"{CSRC}/packed_rfft.cu", f"{PALLAS}:849 (row 5)"),
+    "curl_ifft_x": (f"{CSRC}/curl_ifft_x.cu", f"{PALLAS}:1378 (row 11)"),
+    "cross_rfft_z": (f"{CSRC}/cross_rfft_z.cu",
+                     f"{PALLAS}:1805 (row 12); {PALLAS}:1755 (row 13)"),
+    "fft_x_epilogue": (f"{CSRC}/fft_x_epilogue.cu",
+                       f"{PALLAS}:1981 (row 14)"),
 }
+NU, DT = 0.000625, 0.01
+TRANSFORM_KERNELS = ("fft_axis", "packed_rfft_last", "packed_irfft_last")
+PACKED_STEP_KERNELS = ("curl_ifft_x", "cross_rfft_z", "fft_x_epilogue",
+                       "fft_axis", "packed_irfft_last")
 
 failures = []
 
@@ -69,6 +83,15 @@ def median_ms(torch, fn, iters=30, warmup=3):
 
 def rel_err(torch, got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
+
+
+def packed_vectors(n):
+    """The packed NS3D step's 1-D wavenumbers and 2/3-rule masks at n³
+    (L = 2π): k0, k1, k2, m0, m1, m2 on the card."""
+    from mpifft4py_tpu_torch.utils import spectral
+    N = (n, n, n)
+    return (spectral.factored_wavenumbers(N, None, n // 2, device="cuda")
+            + spectral.packed_dealias_masks(N, "cuda"))
 
 
 def kernel_phase(torch, p3, rng):
@@ -114,9 +137,43 @@ def kernel_phase(torch, p3, rng):
                 p3.fft_axis_planar(xr, xi, 1, inv),
                 p3.fft_axis_planar_ref(xr, xi, 1, inv))
 
+    # the packed NS3D step's kernels at its 256^3 shapes
+    pk = (3, 256, 256, 128)
+    ur, ui, sr, si = cu(pk), cu(pk), cu(pk), cu(pk)
+    km = packed_vectors(256)
+    for ws in (False, True):
+        compare("curl_ifft_x", f"256^3 with_state={ws}",
+                p3.curl_ifft_x(ur, ui, *km[:3], ws),
+                p3.curl_ifft_x_ref(ur, ui, *km[:3], ws))
+    compare("curl_ifft_x", "curl_irfft3d_packed 256^3 with_state",
+            p3.curl_irfft3d_packed(ur, ui, *km[:3], (256,) * 3,
+                                   with_state=True),
+            p3.curl_irfft3d_packed_ref(ur, ui, *km[:3], (256,) * 3,
+                                       with_state=True))
+    a, b = cu((3, 256, 256, 256)), cu((3, 256, 256, 256))
+    compare("cross_rfft_z", "256^3", p3.cross_rfft_z(a, b),
+            p3.cross_rfft_z_ref(a, b))
+    compare("cross_rfft_z", "cross_rfft_zy_packed 256^3",
+            p3.cross_rfft_zy_packed(a, b), p3.cross_rfft_zy_packed_ref(a, b))
+    a5, b5 = cu((3, 4, 512, 512)), cu((3, 4, 512, 512))
+    compare("cross_rfft_z", "cross_rfft_zy_packed 512-class planes "
+            "(3, 4, 512, 512), row 13's function",
+            p3.cross_rfft_zy_packed(a5, b5),
+            p3.cross_rfft_zy_packed_ref(a5, b5))
+    del a5, b5
+    epi = (lambda: p3.fft_x_epilogue_packed(ur, ui, sr, si, *km, "project",
+                                            NU))
+    epi_ref = (lambda: p3.fft_x_epilogue_packed_ref(ur, ui, sr, si, *km, NU))
+    compare("fft_x_epilogue", "256^3 project", tuple(epi()), tuple(epi_ref()))
+
     # times at the 256^3 main-path shapes, kernel beside twin, in turns
     xr, xi, u = cu((256, 256, 128)), cu((256, 256, 128)), cu((256, 256, 256))
     cases = {
+        "curl_ifft_x": (lambda: p3.curl_ifft_x(ur, ui, *km[:3], True),
+                        lambda: p3.curl_ifft_x_ref(ur, ui, *km[:3], True)),
+        "cross_rfft_z": (lambda: p3.cross_rfft_z(a, b),
+                         lambda: p3.cross_rfft_z_ref(a, b)),
+        "fft_x_epilogue": (epi, epi_ref),
         "fft_axis": (lambda: p3.fft_axis_planar(xr, xi, 0),
                      lambda: p3.fft_axis_planar_ref(xr, xi, 0)),
         "packed_rfft_last": (lambda: p3.rfft_last_packed(u),
@@ -129,8 +186,8 @@ def kernel_phase(torch, p3, rng):
         p1, k1 = median_ms(torch, plain), median_ms(torch, kern)
         k2, p2 = median_ms(torch, kern), median_ms(torch, plain)
         out[name] = (errs[name], min(k1, k2), min(p1, p2))
-        print(f"time {name} 256^3 stage: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"torch.fft twin {p1:.4f} / {p2:.4f} ms", flush=True)
+        print(f"time {name} 256^3: kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain twin {p1:.4f} / {p2:.4f} ms", flush=True)
     return out
 
 
@@ -156,7 +213,7 @@ def transform_phase(torch, p3, R2C, rng):
         check(err23 <= 1e-5, f"R2C {N}^3 2/3-rule forward vs masked float64 "
                              f"spectrum: rel err {err23:.3e}")
         del ref, fu, back, fu23, ref23
-        for k in p3.LAUNCHES:
+        for k in TRANSFORM_KERNELS:
             check(p3.LAUNCHES[k] > before[k],
                   f"R2C {N}^3 launched {k}: {p3.LAUNCHES[k] - before[k]}")
         fwd, bwd = FFT.forward_fn(), FFT.backward_fn()
@@ -172,47 +229,92 @@ def transform_phase(torch, p3, R2C, rng):
         del u, FFT
 
 
-def solver_phase(torch, p3, R2C, NavierStokes3D):
-    def make(precision):
-        FFT = R2C(np.array([256] * 3), np.array([TAU] * 3), None, precision,
-                  device="cuda")
-        return NavierStokes3D(FFT, nu=0.000625, dt=0.01, dealias="2/3-rule",
-                              integrator="RK4")
+def make_solver(R2C, NavierStokes3D, precision, layout="complex"):
+    FFT = R2C(np.array([256] * 3), np.array([TAU] * 3), None, precision,
+              device="cuda")
+    return NavierStokes3D(FFT, nu=NU, dt=DT, dealias="2/3-rule",
+                          integrator="RK4", spectral_layout=layout)
 
-    s = make("single")
-    before = dict(p3.LAUNCHES)
+
+def run_steps(torch, p3, s, label):
+    """5 RK4 steps from Taylor–Green with the energy after each, then the
+    same 5 steps timed (host clock, synchronised) with the peak device
+    memory above what was resident before them.  Returns the state, the
+    energies, ms per step, the peak bytes and the launches of the steps."""
     U0 = s.taylor_green()
     e = [s.energy(U0)]
-    check(abs(e[0] - 0.125) < 1e-6, f"NS3D 256^3 energy at t=0: {e[0]!r}")
+    check(abs(e[0] - 0.125) < 1e-6, f"{label} energy at t=0: {e[0]!r}")
+    steps = dict.fromkeys(p3.LAUNCHES, 0)
     U = U0
-    for _ in range(5):                        # energies after every step
+    for _ in range(5):
+        before = dict(p3.LAUNCHES)
         U = s.step(U)
+        for k in steps:
+            steps[k] += p3.LAUNCHES[k] - before[k]
         e.append(s.energy(U))
-    print(f"NS3D 256^3 RK4 energies: {e}", flush=True)
+    print(f"{label} RK4 energies: {e}", flush=True)
+    check(all(np.isfinite(e)) and all(a > b for a, b in zip(e, e[1:])),
+          f"{label} energies finite and strictly decreasing over 5 steps")
     V = U0                                    # the same 5 steps, timed
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(5):
         V = s.step(V)
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3 / 5
+    peak = torch.cuda.max_memory_allocated() - resident
     del V
-    check(all(np.isfinite(e)) and all(a > b for a, b in zip(e, e[1:])),
-          "NS3D 256^3 energies finite and strictly decreasing over 5 steps")
-    for k in p3.LAUNCHES:
-        check(p3.LAUNCHES[k] > before[k],
-              f"NS3D 256^3 launched {k}: {p3.LAUNCHES[k] - before[k]}")
-    d = make("double")
+    return U, e, ms_step, peak, steps
+
+
+def rel_l2(torch, got, ref):
+    got = got.to(ref.dtype)
+    return float(torch.linalg.vector_norm(got - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+def solver_phase(torch, p3, R2C, NavierStokes3D):
+    """The complex layout; returns its float32 and float64 states after 5
+    steps, its ms per step and its peak step memory."""
+    s = make_solver(R2C, NavierStokes3D, "single")
+    U, _, ms_step, peak, steps = run_steps(torch, p3, s, "NS3D 256^3")
+    for k in TRANSFORM_KERNELS:
+        check(steps[k] > 0, f"NS3D 256^3 steps launched {k}: {steps[k]}")
+    d = make_solver(R2C, NavierStokes3D, "double")
     W = d.taylor_green()
     for _ in range(5):
         W = d.step(W)
-    err = float(torch.linalg.vector_norm(U.to(torch.complex128) - W)
-                / torch.linalg.vector_norm(W))
+    err = rel_l2(torch, U, W)
     check(err <= 1e-5, f"NS3D 256^3 single vs double after 5 steps: "
                        f"rel L2 err {err:.3e}")
     print(f"time NS3D 256^3 RK4 2/3-rule single: {ms_step:.3f} ms/step "
-          f"(host clock over 5 steps, synchronised)", flush=True)
-    return ms_step
+          f"(host clock over 5 steps, synchronised); peak step memory "
+          f"{peak / 2**30:.3f} GiB above the resident", flush=True)
+    return U, W, ms_step, peak
+
+
+def packed_solver_phase(torch, p3, R2C, NavierStokes3D, Uc, Ud, ms_c, peak_c):
+    """The packed layout: the same 5 steps, held against the complex
+    layout's float32 and float64 states."""
+    s = make_solver(R2C, NavierStokes3D, "single", "packed")
+    U, _, ms_step, peak, steps = run_steps(torch, p3, s, "packed NS3D 256^3")
+    for k in PACKED_STEP_KERNELS:
+        check(steps[k] > 0, f"packed NS3D 256^3 steps launched {k}: "
+                            f"{steps[k]}")
+    print(f"packed NS3D 256^3 launches in 5 steps: {steps}", flush=True)
+    Up = s.from_packed(U)
+    for ref, what in ((Uc, "complex-layout float32"),
+                      (Ud, "complex-layout float64")):
+        err = rel_l2(torch, Up, ref)
+        check(err <= 1e-5, f"packed NS3D 256^3 vs the {what} run after 5 "
+                           f"steps: rel L2 err {err:.3e}")
+    print(f"time NS3D 256^3 RK4 2/3-rule single: packed {ms_step:.3f} "
+          f"ms/step, complex {ms_c:.3f} ms/step (host clock over 5 steps, "
+          f"synchronised); peak step memory above the resident: packed "
+          f"{peak / 2**30:.3f} GiB, complex {peak_c / 2**30:.3f} GiB",
+          flush=True)
 
 
 def main():
@@ -240,14 +342,28 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{_build.last_build_seconds} s) into {_build.build_dir()}",
           flush=True)
+    for line in _build.ptxas_report().splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            print("ptxas " + line.split(":", 1)[-1].strip(), flush=True)
 
     rng = np.random.default_rng(SEED)
     kern = kernel_phase(torch, p3, rng)
 
-    p3.reset_launches()                       # the main path starts here
-    transform_phase(torch, p3, R2C, rng)
-    solver_phase(torch, p3, R2C, NavierStokes3D)
-    launches = dict(p3.LAUNCHES)
+    # the main path: each of its paths runs with the counts set to 0 just
+    # before it and read just after
+    launches = dict.fromkeys(p3.LAUNCHES, 0)
+
+    def path(phase, *args):
+        p3.reset_launches()
+        out = phase(*args)
+        for k, n in p3.LAUNCHES.items():
+            launches[k] += n
+        return out
+
+    path(transform_phase, torch, p3, R2C, rng)
+    Uc, Ud, ms_c, peak_c = path(solver_phase, torch, p3, R2C, NavierStokes3D)
+    path(packed_solver_phase, torch, p3, R2C, NavierStokes3D, Uc, Ud, ms_c,
+         peak_c)
     for k, n in launches.items():
         check(n > 0, f"main path launched {k} {n} times")
 

@@ -1,14 +1,18 @@
 """Spectral diagnostics of DNS runs: shell-binned energy spectra, dissipation.
 
-Port of the complex-layout part of ``mpifft4py_tpu/models/diagnostics.py``:
-E(k) shell sums over the r2c spectrum with Hermitian weights (interior k2
-modes count twice), computed on the state's device.
+Port of ``mpifft4py_tpu/models/diagnostics.py``: E(k) shell sums over the
+r2c spectrum with Hermitian weights (interior k2 modes count twice),
+computed on the state's device, for the complex state and for the packed
+(Sr, Si) pair (``*_packed``, from 1-D wavenumbers, with no complex or
+K-mesh materialised).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import spectral
 
 
 def _hermitian_weights(FFT) -> torch.Tensor:
@@ -43,3 +47,34 @@ def dissipation(FFT, U_hat, nu: float) -> float:
     e = (torch.sum(U_hat.abs() ** 2, dim=0) * _hermitian_weights(FFT)
          / (ntot * ntot))
     return float(nu * torch.sum(k2 * e))
+
+
+def _packed_ksq(FFT, L):
+    """|K|² over the packed layout (integer wavenumbers for ``L=None``)."""
+    return spectral.ksq(*spectral.factored_wavenumbers(
+        FFT.N, L, int(FFT.N[2]) // 2, device=FFT.device))
+
+
+def energy_spectrum_packed(FFT, pair) -> np.ndarray:
+    """E(k) of a packed (Sr, Si) state (a pair or a (2, C, …) tensor), with
+    no complex unpack.  The pair must be purified (2/3-rule solver states
+    always are).  Returns a host numpy array."""
+    sr, si = pair
+    N = [int(n) for n in FFT.N]
+    kmax = int(max(N) // 2)
+    ntot = float(np.prod(N))
+    w = spectral.packed_hermitian_weights(N, FFT.device)
+    shell = torch.clamp(torch.round(torch.sqrt(_packed_ksq(FFT, None)))
+                        .to(torch.int64), 0, kmax)
+    e = 0.5 * torch.sum(sr * sr + si * si, dim=0) * w / (ntot * ntot)
+    out = torch.zeros(kmax + 1, dtype=e.dtype, device=e.device)
+    return out.index_add_(0, shell.ravel(), e.ravel()).cpu().numpy()
+
+
+def dissipation_packed(FFT, pair, nu: float) -> float:
+    """ε of a packed (Sr, Si) state, from scaled 1-D wavenumbers."""
+    sr, si = pair
+    ntot = float(np.prod([int(n) for n in FFT.N]))
+    w = spectral.packed_hermitian_weights(FFT.N, FFT.device)
+    e = torch.sum(sr * sr + si * si, dim=0) * w / (ntot * ntot)
+    return float(nu * torch.sum(_packed_ksq(FFT, FFT.L) * e))

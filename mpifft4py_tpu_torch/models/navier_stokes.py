@@ -1,16 +1,27 @@
-"""Pseudo-spectral incompressible 3D Navier–Stokes DNS, complex layout.
+"""Pseudo-spectral incompressible 3D Navier–Stokes DNS.
 
 Port of ``mpifft4py_tpu/models/navier_stokes.py`` (``SpectralSolver`` and
-``NavierStokes3D``) in the complex spectral layout.  Rotational form,
-velocity in spectral space:
+``NavierStokes3D``) in both spectral layouts.  Rotational form, velocity in
+spectral space:
 
     dU_hat/dt = P[ F̂(U × ω) ] − ν k² U_hat,   ω = ifftn(i K × U_hat),
     P(F̂) = F̂ − K (K·F̂)/|K|²                   (Leray projection).
 
 PyTorch runs eagerly: a step is a chain of tensor calls on the state's
-device, and ``run`` is a Python loop.  Each right-hand side does three
-batched transform calls (velocity, vorticity, nonlinear term), one launch
-sequence per 3-stack.
+device, and ``run`` is a Python loop.
+
+* ``spectral_layout="complex"``: the state is a complex (3, N0, N1, Nf)
+  tensor; each right-hand side does three batched transform calls
+  (velocity, vorticity, nonlinear term), one launch sequence per 3-stack.
+* ``spectral_layout="packed"``: the state is the packed planar float32 pair
+  carried as ONE (2, 3, N0, N1, N2/2) tensor (``[0]``/``[1]`` are the
+  contiguous re/im planes, so each integrator axpy is one launch), with no
+  complex boundary anywhere.  The right-hand side runs through the fused
+  kernels of ``ops.fft3d``: the curl with the state's x inverse, the cross
+  product with the z/y forwards, and the x forward with the mask, the
+  projection and the viscous term (``rhs_packed``).  The reference's
+  streamed nonlinear term and fold integrators, which fit 512³–768³ on a
+  16 GB chip, are not ported (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -19,6 +30,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..ops import fft3d as p3
+from ..ops.fft3d import cross, kcross
+from ..utils import spectral
 
 _LSRK54_A = (
     0.0,
@@ -37,8 +52,6 @@ _LSRK54_B = (
 
 INTEGRATORS = ("RK4", "LSRK54", "Euler", "AB2")
 
-_ITEM_PACKED = "ROADMAP.md queue 1 item 5 (packed layout, kernel rows 11-14)"
-
 
 class SpectralSolver:
     """Shared machinery of the spectral solvers: integrators, factored
@@ -47,10 +60,7 @@ class SpectralSolver:
 
     def _init_solver(self, FFT, dt, dealias, integrator,
                      spectral_layout: str = "complex"):
-        if spectral_layout == "packed":
-            raise NotImplementedError(
-                f"spectral_layout='packed': see {_ITEM_PACKED}")
-        if spectral_layout != "complex":
+        if spectral_layout not in ("complex", "packed"):
             raise ValueError(f"spectral_layout must be 'complex' or 'packed', "
                              f"got {spectral_layout!r}")
         if integrator not in INTEGRATORS:
@@ -60,6 +70,8 @@ class SpectralSolver:
         self.dt = float(dt)
         self.dealias = dealias
         self.integrator = integrator
+        if spectral_layout == "packed":
+            self._validate_packed()
         self.spectral_layout = spectral_layout
         # stacks of fields ride one call per transform
         self._fwd = FFT.forward_fields_fn(dealias=dealias)
@@ -68,22 +80,83 @@ class SpectralSolver:
 
     def _factored_k(self):
         """1-D scaled wavenumbers (k0, k1, k2) matching
-        global_complex_shape(), in FFT.float: a float64 k against a
-        complex64 state would promote the state to complex128."""
+        global_complex_shape(), in FFT.float."""
         FFT = self.FFT
-        N = [int(n) for n in FFT.N]
-        nf = FFT.global_complex_shape()[2]
-        ft = np.float32 if FFT.float == torch.float32 else np.float64
-        s = (2 * np.pi / np.asarray(FFT.L)).astype(ft)
-        k0 = np.fft.fftfreq(N[0], 1.0 / N[0]).astype(ft) * s[0]
-        k1 = np.fft.fftfreq(N[1], 1.0 / N[1]).astype(ft) * s[1]
-        k2 = np.arange(nf, dtype=ft) * s[2]
-        return tuple(torch.from_numpy(k).to(FFT.device) for k in (k0, k1, k2))
+        return spectral.factored_wavenumbers(
+            FFT.N, FFT.L, FFT.global_complex_shape()[2], FFT.float,
+            FFT.device)
 
     def _step_args(self):
         if not hasattr(self, "_k_args"):
-            self._k_args = self._factored_k()
+            self._k_args = (self._packed_arrays()
+                            if self.spectral_layout == "packed"
+                            else self._factored_k())
         return self._k_args
+
+    # -- packed spectral layout plumbing -------------------------------------------
+
+    def _validate_packed(self):
+        """The reference's envelope, which is also the fused kernels': every
+        solver that passes runs its right-hand side through them."""
+        FFT = self.FFT
+        if not (self.dealias == "2/3-rule"
+                and hasattr(FFT, "_packed_iface_ok")
+                and FFT._packed_iface_ok(self.dealias)):
+            raise ValueError(
+                "spectral_layout='packed' needs a float32 R2C with every axis "
+                "in the kernels' envelope, (N2/2) % 128 == 0 and "
+                "dealias='2/3-rule'")
+
+    def _packed_arrays(self):
+        """The packed RHS's factored state: 1-D scaled wavenumbers
+        (k0, k1, k2), k2 = 0..h−1, and 1-D 2/3-rule masks (m0, m1, m2), on
+        the device.  No (3, N0, N1, h) K array is ever materialised."""
+        FFT = self.FFT
+        return (spectral.factored_wavenumbers(FFT.N, FFT.L, int(FFT.N[2]) // 2,
+                                              torch.float32, FFT.device)
+                + spectral.packed_dealias_masks(FFT.N, FFT.device))
+
+    def to_packed(self, U_hat):
+        """complex state (3,) + global_complex_shape() -> the packed state,
+        one (2, 3, N0, N1, N2/2) float32 tensor.  The state must be
+        Nyquist-free (guaranteed under the 2/3 rule)."""
+        return torch.stack(p3.pack_spectrum(U_hat))
+
+    def from_packed(self, U):
+        """The packed state (a (2, …) tensor or an (re, im) pair) -> the
+        complex (3,) + global_complex_shape() state."""
+        ur, ui = U
+        return p3.unpack_spectrum(ur, ui)
+
+    def _parseval_component_energies(self):
+        """A fn (Sr, Si) -> per-component Parseval energies
+        0.5·Σ w·|ŝ_c|²/ntot², with the Hermitian weights of a purified
+        packed pair (column k2 = 0 weight 1, the rest 2; no Nyquist
+        column)."""
+        w = spectral.packed_hermitian_weights(self.FFT.N, self.FFT.device)
+        ntot = float(np.prod([int(n) for n in self.FFT.N]))
+
+        def comp_e(Sr, Si):
+            # per-axis sums keep each partial sum short (see staged_mean)
+            e = (Sr * Sr + Si * Si) * w
+            e = e.sum(dim=-1).sum(dim=-1).sum(dim=-1)
+            return 0.5 * e / (ntot * ntot)
+        return comp_e
+
+    def _packed_energy(self, U) -> torch.Tensor:
+        if not hasattr(self, "_comp_e"):
+            self._comp_e = self._parseval_component_energies()
+        return torch.sum(self._comp_e(U[0], U[1]))
+
+    def energy_packed(self, U) -> float:
+        """Parseval total energy 0.5<Σ_c |u_c|²> of a packed state."""
+        return float(self._packed_energy(U))
+
+    def _rhs_state(self, V, *kargs):
+        """The right-hand side of a state in this solver's layout."""
+        if self.spectral_layout == "packed":
+            return self.rhs_packed(V[0], V[1], *kargs)
+        return self.rhs(V, *kargs)
 
     # -- time integrators ---------------------------------------------------------
 
@@ -121,11 +194,11 @@ class SpectralSolver:
         """(U, f(U)) for integrator='AB2': the first step reduces to Euler."""
         if self.integrator != "AB2":
             raise ValueError("ab2_state is only meaningful with integrator='AB2'")
-        return (U, self.rhs(U, *self._step_args()))
+        return (U, self._rhs_state(U, *self._step_args()))
 
     def step(self, state):
         k = self._step_args()
-        return self._advance(lambda V: self.rhs(V, *k), state)
+        return self._advance(lambda V: self._rhs_state(V, *k), state)
 
     def _carry_state(self, c):
         return c[0] if self.integrator == "AB2" else c
@@ -143,6 +216,8 @@ class SpectralSolver:
 
     def _monitor(self, S):
         """Total Parseval energy of a spectral state (no inverse transforms)."""
+        if self.spectral_layout == "packed":
+            return self._packed_energy(S)
         from .diagnostics import _hermitian_weights
         w = _hermitian_weights(self.FFT)
         ntot = float(np.prod([int(n) for n in self.FFT.N]))
@@ -198,14 +273,17 @@ class NavierStokes3D(SpectralSolver):
         self._init_solver(FFT, dt, dealias, integrator, spectral_layout)
 
     def taylor_green(self):
-        """Taylor–Green vortex in spectral space, (3,) + global_complex_shape()."""
+        """Taylor–Green vortex in spectral space: (3,) +
+        global_complex_shape(), or the packed (2, 3, N0, N1, N2/2) state
+        under spectral_layout='packed'."""
         X = self.FFT.get_local_mesh()
         u = torch.stack([
             torch.sin(X[0]) * torch.cos(X[1]) * torch.cos(X[2]),
             -torch.cos(X[0]) * torch.sin(X[1]) * torch.cos(X[2]),
             torch.zeros_like(X[0]),
         ])
-        return self._fwd_plain(u)
+        fu = self._fwd_plain(u)
+        return self.to_packed(fu) if self.spectral_layout == "packed" else fu
 
     def rhs(self, U_hat, k0, k1, k2):
         """dU_hat/dt from the factored 1-D wavenumbers (k0, k1, k2)."""
@@ -214,15 +292,9 @@ class NavierStokes3D(SpectralSolver):
         K2v = k2[None, None, :]
         U = self._bwd(U_hat)
         # vorticity: ω = ifftn(i K × U_hat)
-        W = self._bwd(1j * torch.stack([
-            K1 * U_hat[2] - K2v * U_hat[1],
-            K2v * U_hat[0] - K0 * U_hat[2],
-            K0 * U_hat[1] - K1 * U_hat[0]]))
+        W = self._bwd(1j * kcross((K0, K1, K2v), U_hat))
         # nonlinear term F = U × ω, transformed with dealiasing
-        F_hat = self._fwd(torch.stack([
-            U[1] * W[2] - U[2] * W[1],
-            U[2] * W[0] - U[0] * W[2],
-            U[0] * W[1] - U[1] * W[0]]))
+        F_hat = self._fwd(cross(U, W))
         del U, W
         # Leray projection + viscous term
         ksq = K0 * K0 + K1 * K1 + K2v * K2v
@@ -244,11 +316,43 @@ class NavierStokes3D(SpectralSolver):
             dU = dU + (alpha * band) * U_hat
         return dU
 
+    def rhs_packed(self, Ur, Ui, k0, k1, k2, m0, m1, m2):
+        """dU/dt on the packed layout, as one (2, 3, N0, N1, h) tensor: the
+        curl kernel inverts the vorticity and the state from one pass over
+        the state pair; the cross kernel forms U × ω under the z/y
+        forwards; the epilogue kernel runs the x forward, the mask, the
+        projection and −ν k² Û; the plane-0 purify is a column update."""
+        W, U = p3.curl_irfft3d_packed(Ur, Ui, k0, k1, k2,
+                                      self.FFT.global_real_shape(),
+                                      with_state=True)
+        Fzr, Fzi = p3.cross_rfft_zy_packed(U, W)
+        del U, W
+        dU = p3.fft_x_epilogue_packed(Fzr, Fzi, Ur, Ui, k0, k1, k2,
+                                      m0, m1, m2, "project", self.nu)
+        del Fzr, Fzi
+        p3.purify_plane0_dus(dU[0], dU[1])
+        if self.forcing_band is not None and self.forcing_rate > 0:
+            klo, khi = self.forcing_band
+            ksq = spectral.ksq(k0, k1, k2)
+            band = (ksq >= klo * klo) & (ksq < khi * khi)
+            w = spectral.packed_hermitian_weights(self.FFT.N, Ur.device)
+            ntot = float(np.prod([int(n) for n in self.FFT.N]))
+            Eb = (torch.sum(torch.where(band, w * (Ur * Ur + Ui * Ui), 0.0))
+                  / (2.0 * ntot * ntot))
+            alpha = torch.where(Eb > 0, self.forcing_rate / (2.0 * Eb), 0.0)
+            dU[0].add_((alpha * band) * Ur)
+            dU[1].add_((alpha * band) * Ui)
+        return dU
+
     def energy(self, U_hat) -> float:
-        """Mean kinetic energy 0.5 <|u|²> in physical space."""
+        """Mean kinetic energy 0.5 <|u|²>: in physical space, or the
+        Parseval sum for the packed layout."""
+        if self.spectral_layout == "packed":
+            return self.energy_packed(U_hat)
         U = self._bwd(U_hat)
         return float(0.5 * self.staged_mean(torch.sum(U * U, dim=0)))
 
     def rhs_with_state(self, U_hat):
-        """rhs with the stored wavenumber vectors."""
-        return self.rhs(U_hat, *self._step_args())
+        """The right-hand side with the stored wavenumber vectors, in the
+        solver's layout."""
+        return self._rhs_state(U_hat, *self._step_args())

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 The sources under ``ops/csrc/`` expose a plain C interface (no PyTorch
-headers), so one ``nvcc`` call builds them in seconds.  The shared library
+headers), so one ``nvcc`` per source, all started together, builds them
+in seconds.  The shared library
 lands in ``build/torch_kernels/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources and the flags, at first use:
 a second call in the same checkout finds it and only loads it.  Nothing here
@@ -19,29 +20,36 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_dir", "last_build_seconds"]
+__all__ = ["load", "build_dir", "last_build_seconds", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fft_axis.cu", "packed_rfft.cu")
-HEADERS = ("fft_block.cuh",)
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-         "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("fft_axis.cu", "packed_rfft.cu", "curl_ifft_x.cu",
+           "cross_rfft_z.cu", "fft_x_epilogue.cu")
+HEADERS = ("fft_block.cuh", "packed_z.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # xr, xi, yr, yi, tw, pre, n, post, inverse, stream
-    "fft_axis_launch": (_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_longlong, ctypes.c_int, _P),
+    "fft_axis_launch": (_P, _P, _P, _P, _P, _L, _I, _L, _I, _P),
     # x, yr, yi, tw_h, tw_n, rows, n, stream
-    "packed_rfft_launch": (_P, _P, _P, _P, _P, ctypes.c_longlong,
-                           ctypes.c_int, _P),
+    "packed_rfft_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
     # xr, xi, y, tw_h, tw_n, rows, n, stream
-    "packed_irfft_launch": (_P, _P, _P, _P, _P, ctypes.c_longlong,
-                            ctypes.c_int, _P),
+    "packed_irfft_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
+    # ur, ui, k0, k1, k2, yr, yi, tw, n, n1, h, with_state, stream
+    "curl_ifft_x_launch": (_P,) * 8 + (_I, _I, _I, _I, _P),
+    # a, b, yr, yi, tw_h, tw_n, rows, n, stream
+    "cross_rfft_z_launch": (_P,) * 6 + (_L, _I, _P),
+    # fr, fi, sr, si, k0, k1, k2, m0, m1, m2, yr, yi, tw, n, n1, h, visc,
+    # stream
+    "fft_x_epilogue_launch": (_P,) * 13 + (_I, _I, _I, ctypes.c_float, _P),
 }
 
 _lib = None
-last_build_seconds = None   # wall time of the nvcc call; None if none ran
+last_build_seconds = None   # wall time of the nvcc calls; None if none ran
 
 
 def build_dir() -> Path:
@@ -67,26 +75,51 @@ def _digest() -> str:
 
 
 def _compile(out: Path) -> None:
+    """One nvcc per source, all started together, then one link; ptxas's
+    register and spill report goes beside the library."""
     global last_build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *FLAGS, "-c", "-I", str(CSRC), "-o", obj,
+                 str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{src}:\n{log}" for src, p, log in zip(SOURCES, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
+        Path(str(out) + ".ptxas.txt").write_text("".join(logs))
+        os.replace(lib, out)
     last_build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+
+
+def ptxas_report() -> str:
+    """ptxas's per-kernel registers, shared memory and spills from the
+    build of the loaded library."""
+    return Path(str(_lib_path()) + ".ptxas.txt").read_text()
+
+
+def _lib_path() -> Path:
+    return build_dir() / f"libmpifft4py_torch_{_digest()}.so"
 
 
 def load() -> ctypes.CDLL:
     """The kernels' library, built on first use and cached per process."""
     global _lib
     if _lib is None:
-        path = build_dir() / f"libmpifft4py_torch_{_digest()}.so"
+        path = _lib_path()
         if not path.exists():
             _compile(path)
         lib = ctypes.CDLL(str(path))

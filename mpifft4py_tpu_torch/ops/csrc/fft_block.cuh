@@ -161,4 +161,14 @@ inline int threads_for(int elems) {
   return ((t + 31) / 32) * 32;
 }
 
+// Columns per component for a block that transforms three components side
+// by side (a tile of n rows x 3T columns): the largest T of 16, 8, 4, 2, 1
+// that keeps the tile within one 1024-thread block.  T = 16 up to n = 256
+// (96 KB of shared memory), 8 up to 512, 4 up to 1024.
+inline int stack3_cols(int n) {
+  int T = 16;
+  while (T > 1 && n * 3 * T > 1024 * kEPT) T /= 2;
+  return T;
+}
+
 }  // namespace fftblock

@@ -9,10 +9,8 @@
 //
 // The algorithm is the half-length one of the reference's
 // _rfft_last_packed_fact (pallas_fft3d.py:656-669): z_t = x[2t] + i*x[2t+1],
-// Z = FFT_h(z), then the untangle
-//   X[k] = (Z[k] + conj Z[h-k])/2 + e^{-2 pi i k/n} (Z[k] - conj Z[h-k])/(2i),
-//   packed X[0] = (Re Z0 + Im Z0) + i (Re Z0 - Im Z0).
-// The inverse is its mirror image, with 1/n folded into the store.
+// Z = FFT_h(z), then the untangle of packed_z.cuh.  The inverse is its
+// mirror image, with 1/n folded into the store.
 //
 // On the H100 the row transform is HBM-bound like fft_axis (about
 // 2.5 n log2 n flops on 12 bytes per real sample).  Rows are contiguous, so
@@ -24,6 +22,7 @@
 #include <cuda_runtime.h>
 
 #include "fft_block.cuh"
+#include "packed_z.cuh"
 
 using fftblock::Plan;
 
@@ -55,24 +54,10 @@ packed_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
     const int rho = e / h;
     const int k = e % h;
     if (row0 + rho >= rows) continue;
-    const float2 Z = s[k * pitch + rho];
-    float outr, outi;
-    if (k == 0) {
-      outr = Z.x + Z.y;  // X[0]
-      outi = Z.x - Z.y;  // X[n/2], the rider
-    } else {
-      const float2 Zf = s[(h - k) * pitch + rho];
-      const float Er = 0.5f * (Z.x + Zf.x);
-      const float Ei = 0.5f * (Z.y - Zf.y);
-      const float Or = 0.5f * (Z.y + Zf.y);
-      const float Oi = 0.5f * (Zf.x - Z.x);
-      const float2 w = tw_n[k];  // exp(-2 pi i k / n)
-      outr = Er + (w.x * Or - w.y * Oi);
-      outi = Ei + (w.x * Oi + w.y * Or);
-    }
+    const float2 X = packedz::untangle(s, pitch, rho, k, h, tw_n);
     const long long g = (row0 + rho) * h + k;
-    yr[g] = outr;
-    yi[g] = outi;
+    yr[g] = X.x;
+    yi[g] = X.y;
   }
 }
 

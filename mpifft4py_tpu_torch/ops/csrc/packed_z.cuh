@@ -1,0 +1,31 @@
+// The untangle step of the packed-Hermitian r2c along the last axis.
+//
+// A real row x of length n = 2h is transformed as one h-point complex FFT
+// of z_t = x[2t] + i*x[2t+1]; the untangle turns its spectrum Z into the
+// packed X (h columns, column 0 holding X[0] + i*X[n/2]):
+//   X[k] = (Z[k] + conj Z[h-k])/2 + e^{-2 pi i k/n} (Z[k] - conj Z[h-k])/(2i).
+// Shared by packed_rfft.cu (the plain r2c) and cross_rfft_z.cu (the cross
+// product with the r2c behind it).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace packedz {
+
+// X[k] from the spectrum Z held in shared memory at s[j * pitch + col]
+// (j = 0..h-1); tw_n[k] = exp(-2 pi i k / n).
+__device__ __forceinline__ float2 untangle(const float2* s, int pitch,
+                                           int col, int k, int h,
+                                           const float2* __restrict__ tw_n) {
+  const float2 Z = s[k * pitch + col];
+  if (k == 0) return make_float2(Z.x + Z.y, Z.x - Z.y);  // X[0], X[n/2]
+  const float2 Zf = s[(h - k) * pitch + col];
+  const float Er = 0.5f * (Z.x + Zf.x);
+  const float Ei = 0.5f * (Z.y - Zf.y);
+  const float Or = 0.5f * (Z.y + Zf.y);
+  const float Oi = 0.5f * (Zf.x - Z.x);
+  const float2 w = tw_n[k];
+  return make_float2(Er + (w.x * Or - w.y * Oi), Ei + (w.x * Oi + w.y * Or));
+}
+
+}  // namespace packedz

@@ -5,14 +5,20 @@ packed-Hermitian planar layout.  Kernel functions take and return planar
 ``(re, im)`` float32 pairs; a packed spectrum sits in h = n/2 columns with
 column 0 holding X[0] + i·X[n/2].
 
-Three CUDA kernels (``csrc/``) carry the path:
+Six CUDA kernels (``csrc/``) carry the path:
 
 * ``fft_axis`` (``fft_axis_planar``): c2c along a non-last axis;
 * ``packed_rfft_last`` / ``packed_irfft_last`` (``rfft_last_packed`` /
-  ``irfft_last_packed``): packed r2c / c2r along the last axis.
+  ``irfft_last_packed``): packed r2c / c2r along the last axis;
+* the packed NS3D right-hand side's fused kernels: ``curl_ifft_x`` (the
+  curl with the x inverse, for ``curl_irfft3d_packed``), ``cross_rfft_z``
+  (the cross product with the packed z r2c, for ``cross_rfft_zy_packed``)
+  and ``fft_x_epilogue`` (the x forward with the mask, projection and
+  viscous term, ``fft_x_epilogue_packed``).
 
 ``fused_zy_fwd`` / ``fused_zy_bwd`` keep the reference's contracts as one
-launch per stage (see the source note in ``csrc/fft_axis.cu``).
+launch per stage (see the source note in ``csrc/fft_axis.cu``); so do the
+fused NS3D functions, whose y stages are ``fft_axis`` launches.
 
 Every kernel function has a plain twin (``*_ref``) over ``torch.fft``.  A
 wrapper runs the twin for CPU tensors only; for CUDA tensors it launches the
@@ -26,15 +32,23 @@ import math
 import numpy as np
 import torch
 
+from ..utils import spectral
+
 __all__ = [
     "LAUNCHES", "reset_launches", "supported_c2c", "supported_r2c",
     "fft_axis_planar", "rfft_last_packed", "irfft_last_packed",
     "fused_zy_fwd", "fused_zy_bwd", "rfft3d_packed", "irfft3d_packed",
     "unpack_plane0", "pack_plane0", "unpack_spectrum", "pack_spectrum",
-    "purify_plane0", "rfft3d", "irfft3d",
+    "purify_plane0", "rfft3d", "irfft3d", "purify_plane0_dus",
+    "curl_fused_ok", "cross_zy_ok", "fft_x_epilogue_ok", "curl_ifft_x",
+    "curl_irfft3d_packed", "cross_rfft_z", "cross_rfft_zy_packed",
+    "fft_x_epilogue_packed", "cross", "kcross",
 ]
 
-LAUNCHES = {"fft_axis": 0, "packed_rfft_last": 0, "packed_irfft_last": 0}
+LAUNCHES = {"fft_axis": 0, "packed_rfft_last": 0, "packed_irfft_last": 0,
+            "curl_ifft_x": 0, "cross_rfft_z": 0, "fft_x_epilogue": 0}
+
+_ITEM_FAMILY = "ROADMAP.md queue 1 item 7 (the model family)"
 
 
 def reset_launches() -> None:
@@ -299,3 +313,229 @@ def rfft3d(u):
 def irfft3d(fu, s):
     """Inverse of ``rfft3d``; ``s`` = the last three physical sizes."""
     return irfft3d_packed(*pack_spectrum(fu), tuple(s)[-3:])
+
+
+def purify_plane0_dus(yr, yi):
+    """``purify_plane0`` as an in-place update of the k2 = 0 column of
+    ``yr``/``yi`` (the reference's dynamic-update-slice form); returns them.
+    The flip needs the whole (k0, k1) plane, so it runs after the kernels,
+    on 1/h of the data."""
+    qr, qi = yr[..., 0], yi[..., 0]
+    fr, fi = _flipconj(qr, qi, (qr.ndim - 2, qr.ndim - 1))
+    qr.copy_(0.5 * (qr + fr))
+    qi.copy_(0.5 * (qi + fi))
+    return yr, yi
+
+
+# -- the fused kernels of the packed NS3D right-hand side -------------------------
+#
+# The state is a packed pair (3, N0, N1, h); the wavenumbers and 2/3-rule
+# masks arrive as the solver's 1-D vectors k0/m0 (N0), k1/m1 (N1), k2/m2 (h).
+# The gates are shape predicates of the kernels' envelope: the tiles of
+# csrc/ always fit one block, so no memory budget enters (the reference's
+# VMEM budgets do not carry over).
+
+def curl_fused_ok(n0: int) -> bool:
+    """The curl + x-inverse kernel serves x length ``n0``."""
+    return supported_c2c(n0)
+
+
+def cross_zy_ok(n1: int, n2: int) -> bool:
+    """The cross + z kernel and the y stage serve (n1, n2) planes, 512-class
+    included (row 13's function: the kernel has no whole-plane working
+    set)."""
+    return supported_c2c(n1) and supported_r2c(n2)
+
+
+def fft_x_epilogue_ok(n0: int) -> bool:
+    """The x-forward + epilogue kernel serves x length ``n0``."""
+    return supported_c2c(n0)
+
+
+def _kvecs(k0, k1, k2):
+    return k0[:, None, None], k1[None, :, None], k2[None, None, :]
+
+
+def _check_stack(name, shape, vecs=()) -> None:
+    """A packed or physical 3-stack (3, N0, N1, n) and its 1-D vectors of
+    lengths (N0, N1, n)."""
+    if len(shape) != 4 or shape[0] != 3:
+        raise ValueError(f"{name}: needs a (3, N0, N1, n) stack, got "
+                         f"{tuple(shape)}")
+    for v, n in zip(vecs, (shape[1], shape[2], shape[3]) * 2):
+        if v.shape != (n,):
+            raise ValueError(f"{name}: wavenumber/mask vector of shape "
+                             f"{tuple(v.shape)} for length {n}")
+
+
+def cross(a, b):
+    """A × B of two (3, …) stacks."""
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def kcross(K, v):
+    """K × V for broadcast wavenumber factors K = (K0, K1, K2)."""
+    return torch.stack([K[1] * v[2] - K[2] * v[1],
+                        K[2] * v[0] - K[0] * v[2],
+                        K[0] * v[1] - K[1] * v[0]])
+
+
+def _curl_pair(ur, ui, K):
+    """Planar i K × Û: (re, im) = (−K×Ui, K×Ur)."""
+    return -kcross(K, ui), kcross(K, ur)
+
+
+def curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state: bool = False):
+    cr, ci = _curl_pair(ur, ui, _kvecs(k0, k1, k2))
+    if with_state:
+        cr, ci = torch.cat([cr, ur]), torch.cat([ci, ui])
+    return fft_axis_planar_ref(cr, ci, axis=1, inverse=True)
+
+
+def curl_ifft_x(ur, ui, k0, k1, k2, with_state: bool = False):
+    """x inverse (1/N0) of i K × Û for a packed state (3, N0, N1, h), and
+    with ``with_state`` of Û itself from the same pass: one pair
+    (3 or 6, N0, N1, h), the curl's components first."""
+    on_cpu = _check_float32(ur, ui, k0, k1, k2)
+    _check_pair(ur, ui)
+    _check_stack("curl_ifft_x", ur.shape, (k0, k1, k2))
+    _, n0, n1, h = ur.shape
+    if not curl_fused_ok(n0):
+        raise ValueError(f"curl_ifft_x: N0={n0} outside the kernel envelope")
+    if on_cpu:
+        return curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state)
+    shape = (6 if with_state else 3, n0, n1, h)
+    yr = torch.empty(shape, dtype=torch.float32, device=ur.device)
+    yi = torch.empty_like(yr)
+    _launch("curl_ifft_x", "curl_ifft_x_launch", ur.data_ptr(), ui.data_ptr(),
+            k0.data_ptr(), k1.data_ptr(), k2.data_ptr(), yr.data_ptr(),
+            yi.data_ptr(), _twiddles(n0, n0, 1, ur.device).data_ptr(),
+            n0, n1, h, int(with_state), device=ur.device)
+    return yr, yi
+
+
+def curl_irfft3d_packed_ref(ur, ui, k0, k1, k2, s, with_state: bool = False):
+    w = fused_zy_bwd_ref(*curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state),
+                         int(s[-1]))
+    return (w[:3], w[3:]) if with_state else w
+
+
+def curl_irfft3d_packed(ur, ui, k0, k1, k2, s, biot_savart: bool = False,
+                        with_state: bool = False):
+    """W = irfft3d of i K × Û for a packed state (3, N0, N1, h); ``s`` is
+    the physical shape.  The curl rides the x-inverse kernel, then one y
+    inverse and one z c2r run over all the components.  ``with_state``
+    also returns the state's inverse from the same pass: (W, U), views of
+    one (6, N0, N1, N2) tensor."""
+    if biot_savart:
+        raise NotImplementedError(f"biot_savart (VV): see {_ITEM_FAMILY}")
+    w = fused_zy_bwd(*curl_ifft_x(ur, ui, k0, k1, k2, with_state),
+                     int(s[-1]))
+    return (w[:3], w[3:]) if with_state else w
+
+
+def cross_rfft_z_ref(a, b):
+    return rfft_last_packed_ref(cross(a, b))
+
+
+def cross_rfft_z(a, b):
+    """Packed z r2c of A × B for physical 3-stacks (3, …, n): a pair
+    (3, …, n/2).  The cross product forms in shared memory."""
+    on_cpu = _check_float32(a, b)
+    if a.shape != b.shape or a.ndim < 2 or a.shape[0] != 3:
+        raise ValueError(f"cross_rfft_z: needs two (3, …, n) stacks, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    n = int(a.shape[-1])
+    if not supported_r2c(n):
+        raise ValueError(f"cross_rfft_z: n={n} outside the kernel envelope")
+    if on_cpu:
+        return cross_rfft_z_ref(a, b)
+    h = n // 2
+    yr = torch.empty(a.shape[:-1] + (h,), dtype=torch.float32,
+                     device=a.device)
+    yi = torch.empty_like(yr)
+    _launch("cross_rfft_z", "cross_rfft_z_launch", a.data_ptr(), b.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(),
+            _twiddles(h, h, -1, a.device).data_ptr(),
+            _twiddles(n, h, -1, a.device).data_ptr(),
+            a[0].numel() // n, n, device=a.device)
+    return yr, yi
+
+
+def cross_rfft_zy_packed_ref(a, b):
+    return fft_axis_planar_ref(*cross_rfft_z_ref(a, b), axis=2)
+
+
+def cross_rfft_zy_packed(a, b, c=None, d=None):
+    """(A × B) with the packed z r2c and the y c2c behind it, for physical
+    3-stacks (3, N0, N1, N2): the pair (3, N0, N1, N2/2), x pending (feed
+    ``fft_x_epilogue_packed``).  The cross product never lands in device
+    memory; the y stage is an ``fft_axis`` launch."""
+    if c is not None or d is not None:
+        raise NotImplementedError(f"cross2 (A×B + C×D, MHD): see "
+                                  f"{_ITEM_FAMILY}")
+    _check_stack("cross_rfft_zy_packed", a.shape)
+    if not cross_zy_ok(a.shape[2], a.shape[3]):
+        raise ValueError(f"cross_rfft_zy_packed: (N1, N2) = "
+                         f"{tuple(a.shape[2:])} outside the kernel envelope")
+    yr, yi = cross_rfft_z(a, b)
+    return fft_axis_planar(yr, yi, axis=2)
+
+
+def fft_x_epilogue_packed_ref(fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2,
+                              visc: float):
+    Fr, Fi = fft_axis_planar_ref(fzr, fzi, axis=1)
+    K = _kvecs(k0, k1, k2)
+    mask = m0[:, None, None] * (m1[None, :, None] * m2[None, None, :])
+    Fr, Fi = Fr * mask, Fi * mask
+    ksq = spectral.ksq(k0, k1, k2)
+    inv = 1.0 / torch.where(ksq == 0, 1.0, ksq)
+    dr = (K[0] * Fr[0] + K[1] * Fr[1] + K[2] * Fr[2]) * inv
+    di = (K[0] * Fi[0] + K[1] * Fi[1] + K[2] * Fi[2]) * inv
+    nk = visc * ksq
+    out = torch.empty((2,) + tuple(fzr.shape), dtype=torch.float32,
+                      device=fzr.device)
+    for c in range(3):
+        out[0, c] = Fr[c] - K[c] * dr - nk * sr[c]
+        out[1, c] = Fi[c] - K[c] * di - nk * si[c]
+    return out
+
+
+def fft_x_epilogue_packed(fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2,
+                          mode: str, visc: float, buoy=None):
+    """x forward of the pair after ``cross_rfft_zy_packed`` with the
+    right-hand side's epilogue, ``mode="project"``: the 2/3-rule mask, the
+    Leray projection and − visc·k²·S, with ``(sr, si)`` the packed state
+    (unmasked).  Returns the increment as one (2, 3, N0, N1, h) tensor whose
+    [0]/[1] are the re/im planes.  The plane-0 rider is not purified here:
+    callers apply ``purify_plane0_dus``."""
+    if mode != "project":
+        raise NotImplementedError(f"mode={mode!r} (VV, Boussinesq): see "
+                                  f"{_ITEM_FAMILY}")
+    if buoy is not None:
+        raise NotImplementedError(f"buoy (Boussinesq): see {_ITEM_FAMILY}")
+    m0, m1, m2 = (m.to(torch.float32) for m in (m0, m1, m2))
+    on_cpu = _check_float32(fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2)
+    _check_pair(fzr, fzi)
+    _check_pair(fzr, sr)
+    _check_pair(sr, si)
+    _check_stack("fft_x_epilogue_packed", fzr.shape,
+                 (k0, k1, k2, m0, m1, m2))
+    _, n0, n1, h = fzr.shape
+    if not fft_x_epilogue_ok(n0):
+        raise ValueError(f"fft_x_epilogue_packed: N0={n0} outside the "
+                         f"kernel envelope")
+    if on_cpu:
+        return fft_x_epilogue_packed_ref(fzr, fzi, sr, si, k0, k1, k2,
+                                         m0, m1, m2, visc)
+    out = torch.empty((2, 3, n0, n1, h), dtype=torch.float32,
+                      device=fzr.device)
+    _launch("fft_x_epilogue", "fft_x_epilogue_launch", fzr.data_ptr(),
+            fzi.data_ptr(), sr.data_ptr(), si.data_ptr(), k0.data_ptr(),
+            k1.data_ptr(), k2.data_ptr(), m0.data_ptr(), m1.data_ptr(),
+            m2.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            _twiddles(n0, n0, -1, fzr.device).data_ptr(), n0, n1, h,
+            float(visc), device=fzr.device)
+    return out

@@ -11,6 +11,11 @@ Two routes, chosen by a pure predicate on precision and shape
   kernels, on the CPU their plain twins through the same glue;
 * otherwise (``"double"``, other sizes) ``ops.fft_core`` over ``torch.fft``,
   as the reference falls back to ``jnp.fft``.
+
+The packed interface (``forward_packed_fn``/``backward_packed_fn``) hands
+out the packed planar pair itself, with no complex boundary; its envelope
+is the reference's (float32, ``(N2/2) % 128 == 0``, ``dealias`` None or
+"2/3-rule"), so both packages accept and refuse the same configurations.
 """
 
 from __future__ import annotations
@@ -152,6 +157,66 @@ class R2C(BaseFFT):
                 and p3.supported_c2c(int(self.N[0]))
                 and p3.supported_c2c(int(self.N[1])))
 
+    # -- the packed interface (P == 1) ------------------------------------------
+
+    @property
+    def packed_z_perm(self):
+        """lane → k2 map of the packed pair's last axis: always None, the
+        natural 0..h−1 order (the reference's zdif lane order at N2 >= 512
+        does not carry over)."""
+        return None
+
+    def _packed_iface_ok(self, dealias) -> bool:
+        """The reference's envelope of the packed interface, on the port's
+        kernel path: float32, every axis in the kernels' envelope,
+        (N2/2) % 128 == 0, ``dealias`` None or "2/3-rule"."""
+        return (dealias in (None, "2/3-rule") and self._kernel3d_ok()
+                and (int(self.N[2]) // 2) % 128 == 0)
+
+    def _packed_gate_is_serial(self, dealias) -> bool:
+        """Entry gate of the packed interface: raises outside the envelope;
+        True (the serial kernel chain serves it: P == 1)."""
+        if not self._packed_iface_ok(dealias):
+            raise ValueError(
+                "packed interface needs a float32 R2C with every axis in the "
+                "kernels' envelope, (N2/2) % 128 == 0, and dealias in "
+                "(None, '2/3-rule')")
+        return True
+
+    def _packed_mask_local(self, h):
+        """2/3-rule mask (N0, N1, h) over the packed pair (k2 = 0..h−1)."""
+        return self._dealias_local()[..., :h]
+
+    def forward_packed_fn(self, dealias=None):
+        """real (…, N0, N1, N2) -> packed planar pair (…, N0, N1, N2/2), no
+        complex boundary.  Plane k2 = 0 carries X0 + i·X_Nyquist; with the
+        2/3 rule the rider is purified away and the pair is the masked
+        spectrum on k2 = 0..h−1.  Leading dims batch."""
+        self._packed_gate_is_serial(dealias)
+        return lambda u: self._fwd_packed(u, dealias)
+
+    def _fwd_packed(self, u, dealias):
+        yr, yi = p3.rfft3d_packed(u.contiguous())
+        if dealias == "2/3-rule":
+            p3.purify_plane0_dus(yr, yi)
+            keep = self._packed_mask_local(yr.shape[-1])
+            yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
+        return yr, yi
+
+    def backward_packed_fn(self, dealias=None):
+        """Inverse of ``forward_packed_fn`` (same envelope): a pair (or a
+        (2, …) tensor) -> real (…, N0, N1, N2)."""
+        self._packed_gate_is_serial(dealias)
+        s = self.real_shape()
+
+        def bwd(pair):
+            yr, yi = pair
+            if dealias == "2/3-rule":
+                keep = self._packed_mask_local(yr.shape[-1])
+                yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
+            return p3.irfft3d_packed(yr.contiguous(), yi.contiguous(), s)
+        return bwd
+
     def _check_dealias(self, dealias):
         if dealias == "3/2-rule":
             raise NotImplementedError(f"dealias='3/2-rule': see {_ITEM_32}")
@@ -160,13 +225,9 @@ class R2C(BaseFFT):
 
     def _fwd_kernel(self, u, dealias):
         if dealias == "2/3-rule":
-            # mask in the packed planar domain: purify (drop the Nyquist
-            # rider), mask the float pair, emit a zero Nyquist column
-            yr, yi = p3.rfft3d_packed(u.contiguous())
-            yr, yi = p3.purify_plane0(yr, yi)
-            keep = self._dealias_local()[..., :yr.shape[-1]]
-            x = torch.complex(yr.masked_fill(~keep, 0),
-                              yi.masked_fill(~keep, 0))
+            # mask in the packed planar domain (the packed forward: purify
+            # the Nyquist rider, mask the pair), emit a zero Nyquist column
+            x = torch.complex(*self._fwd_packed(u, dealias))
             return torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
         return p3.rfft3d(u.contiguous())
 

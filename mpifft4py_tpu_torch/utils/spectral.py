@@ -16,7 +16,8 @@ import torch
 __all__ = [
     "pad_full_axis", "trunc_full_axis", "pad_half_axis", "trunc_half_axis",
     "flip_conj_plane", "wavenumbers_full", "wavenumbers_half",
-    "dealias_cutoffs",
+    "dealias_cutoffs", "factored_wavenumbers", "packed_dealias_masks",
+    "packed_hermitian_weights", "ksq",
 ]
 
 
@@ -103,3 +104,44 @@ def wavenumbers_half(nf: int, dtype=np.float64) -> np.ndarray:
 def dealias_cutoffs(N: Sequence[int]) -> np.ndarray:
     """2/3-rule cutoffs per axis: keep |k_i| < (2/3)·(N_i/2)."""
     return np.array([(2.0 / 3.0) * (n // 2) for n in N])
+
+
+# ---- factored 1-D wavenumbers of the solvers' spectral layouts ---------------
+#
+# The r2c layout's last axis holds k2 = 0..N2/2 (n2 = N2/2+1 columns); the
+# packed layout's holds k2 = 0..N2/2−1 (n2 = N2/2, no Nyquist column: the
+# z-Nyquist rides the plane-0 column and a purified pair holds none).
+
+def factored_wavenumbers(N, L, n2: int, dtype=torch.float32, device="cpu"):
+    """1-D wavenumbers (k0, k1, k2) on ``device``: k0, k1 in fft layout,
+    k2 = 0..n2−1, each scaled by 2π/L in ``dtype`` (``L=None``: the integer
+    wavenumbers).  A float64 k against a complex64 state would promote the
+    state to complex128, so the dtype follows the solver's precision."""
+    ft = np.float32 if dtype == torch.float32 else np.float64
+    s = (np.ones(3) if L is None else 2 * np.pi / np.asarray(L)).astype(ft)
+    ks = (wavenumbers_full(int(N[0]), ft) * s[0],
+          wavenumbers_full(int(N[1]), ft) * s[1],
+          wavenumbers_half(int(n2), ft) * s[2])
+    return tuple(torch.from_numpy(k).to(device) for k in ks)
+
+
+def packed_dealias_masks(N, device="cpu"):
+    """1-D 2/3-rule masks (m0, m1, m2) of the packed layout, bool."""
+    ks = (wavenumbers_full(int(N[0])), wavenumbers_full(int(N[1])),
+          wavenumbers_half(int(N[2]) // 2))
+    return tuple(torch.from_numpy(np.abs(k) < c).to(device)
+                 for k, c in zip(ks, dealias_cutoffs(N)))
+
+
+def packed_hermitian_weights(N, device="cpu") -> torch.Tensor:
+    """Weights over the packed layout's k2 axis: 1 on k2 = 0, 2 elsewhere
+    (a purified packed pair has no Nyquist column), float32."""
+    w = torch.full((int(N[2]) // 2,), 2.0, dtype=torch.float32, device=device)
+    w[0] = 1.0
+    return w
+
+
+def ksq(k0, k1, k2) -> torch.Tensor:
+    """|K|² broadcast from the 1-D factors to (len k0, len k1, len k2)."""
+    return (k0[:, None, None] ** 2 + k1[None, :, None] ** 2
+            + k2[None, None, :] ** 2)

@@ -1,8 +1,9 @@
 """Host ↔ device transfer helpers.
 
 Counterpart of ``mpifft4py_tpu/utils/transfer.py``.  CUDA moves complex
-tensors whole, so these are thin; ``state_from_reference`` hands a solver
-state from the JAX package to the port so both step the identical state.
+tensors whole, so these are thin; ``state_from_reference`` and
+``packed_state_from_reference`` hand a solver state from the JAX package to
+the port so both step the identical state.
 """
 
 from __future__ import annotations
@@ -10,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["device_put", "to_numpy", "state_from_reference"]
+__all__ = ["device_put", "to_numpy", "state_from_reference",
+           "packed_state_from_reference"]
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
@@ -52,3 +54,21 @@ def state_from_reference(U_hat_np, FFT) -> torch.Tensor:
     if _NP_TO_TORCH.get(U.dtype) != FFT.complex:
         raise TypeError(f"state dtype {U.dtype} does not match {FFT.complex}")
     return device_put(U, FFT.complex, FFT.device)
+
+
+def packed_state_from_reference(pair, FFT) -> torch.Tensor:
+    """The JAX solver's packed state, a numpy float32 pair ``(Ur, Ui)`` of
+    shape (C, N0, N1, N2/2) each, as the port's packed state: one
+    (2, C, N0, N1, N2/2) tensor on ``FFT.device``.  The pair must be in
+    natural lane order (the reference's zdif order at N2 >= 512 is undone
+    by the caller with ``zdif_iperm``)."""
+    ur, ui = (np.asarray(a) for a in pair)
+    N = [int(n) for n in FFT.N]
+    want = (N[0], N[1], N[2] // 2)
+    if ur.shape != ui.shape or ur.ndim != 4 or tuple(ur.shape[1:]) != want:
+        raise ValueError(f"packed pair shapes {ur.shape}, {ui.shape} are not "
+                         f"(C,) + {want}")
+    if ur.dtype != np.float32 or ui.dtype != np.float32:
+        raise TypeError(f"packed pair dtypes {ur.dtype}, {ui.dtype}: float32 "
+                        f"expected")
+    return device_put(np.stack([ur, ui]), torch.float32, FFT.device)

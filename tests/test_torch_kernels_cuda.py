@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpifft4py_tpu_torch.models.navier_stokes import NavierStokes3D
 from mpifft4py_tpu_torch.ops import fft3d as p3
 from mpifft4py_tpu_torch.slab import R2C
 
@@ -82,6 +83,80 @@ def test_r2c_on_the_card_matches_float64(cuda):
     back = FFT.ifftn(fu)
     torch.cuda.synchronize()
     assert float((back - u).abs().max()) < 1e-6 * float(u.abs().max())
+
+
+def _kvecs(shape, device):
+    """The packed layout's 1-D wavenumbers (k0, k1, k2), scaled per axis,
+    and 2/3-rule masks (m0, m1, m2) for (N0, N1, h)."""
+    n0, n1, h = shape
+    k = (np.fft.fftfreq(n0, 1 / n0), np.fft.fftfreq(n1, 1 / n1),
+         np.arange(h))
+    m = [np.abs(v) < 2 / 3 * (n // 2) for v, n in zip(k, (n0, n1, 2 * h))]
+    k = [v * sc for v, sc in zip(k, (1.0, 0.5, 2.0))]
+    return tuple(torch.as_tensor(np.asarray(v, np.float32), device=device)
+                 for v in k + m)
+
+
+# packed (3, N0, N1, h): the 256^3 shapes' x lengths, the T = 8 and T = 4
+# tiles (n0 = 384/512, 1024), and a ragged last tile (Q = 15 < T)
+PACKED = [(3, 16, 16, 128), (3, 256, 4, 128), (3, 384, 3, 64),
+          (3, 512, 4, 128), (3, 1024, 2, 128), (3, 48, 5, 3)]
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("shape", PACKED)
+def test_curl_ifft_x_matches_twin(cuda, shape, with_state):
+    ur, ui = _f32(shape, cuda, 1), _f32(shape, cuda, 2)
+    k = _kvecs(shape[1:], cuda)[:3]
+    before = p3.LAUNCHES["curl_ifft_x"]
+    got = p3.curl_ifft_x(ur, ui, *k, with_state)
+    assert p3.LAUNCHES["curl_ifft_x"] == before + 1
+    _close(got, p3.curl_ifft_x_ref(ur, ui, *k, with_state))
+
+
+@pytest.mark.parametrize("shape", PACKED)
+def test_fft_x_epilogue_matches_twin(cuda, shape):
+    fr, fi, sr, si = (_f32(shape, cuda, j) for j in range(4))
+    km = _kvecs(shape[1:], cuda)
+    before = p3.LAUNCHES["fft_x_epilogue"]
+    got = p3.fft_x_epilogue_packed(fr, fi, sr, si, *km, "project", 0.01)
+    assert p3.LAUNCHES["fft_x_epilogue"] == before + 1
+    _close(tuple(got),
+           tuple(p3.fft_x_epilogue_packed_ref(fr, fi, sr, si, *km, 0.01)))
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 64, 256), (3, 2, 512, 512),
+                                   (3, 7, 16, 48), (3, 3, 24, 1024)])
+def test_cross_rfft_z_matches_twin(cuda, shape):
+    a, b = _f32(shape, cuda, 1), _f32(shape, cuda, 2)
+    before = p3.LAUNCHES["cross_rfft_z"]
+    got = p3.cross_rfft_z(a, b)
+    assert p3.LAUNCHES["cross_rfft_z"] == before + 1
+    _close(got, p3.cross_rfft_z_ref(a, b))
+    _close(p3.cross_rfft_zy_packed(a, b), p3.cross_rfft_zy_packed_ref(a, b))
+
+
+def test_curl_irfft3d_packed_matches_twin(cuda):
+    shape = (3, 16, 32, 128)
+    ur, ui = _f32(shape, cuda, 1), _f32(shape, cuda, 2)
+    k = _kvecs(shape[1:], cuda)[:3]
+    s = (16, 32, 256)
+    _close(p3.curl_irfft3d_packed(ur, ui, *k, s, with_state=True),
+           p3.curl_irfft3d_packed_ref(ur, ui, *k, s, with_state=True))
+
+
+def test_packed_step_on_the_card_matches_complex(cuda):
+    FFT = R2C(np.array([32, 32, 256]), np.array([2 * np.pi] * 3), None,
+              "single", device=cuda)
+    c = NavierStokes3D(FFT, nu=0.01, dt=0.01)
+    p = NavierStokes3D(FFT, nu=0.01, dt=0.01, spectral_layout="packed")
+    Uc, Up = c.taylor_green(), p.taylor_green()
+    for _ in range(2):
+        Uc, Up = c.step(Uc), p.step(Up)
+    torch.cuda.synchronize()
+    err = float(torch.linalg.vector_norm(p.from_packed(Up) - Uc)
+                / torch.linalg.vector_norm(Uc))
+    assert err <= 1e-5
 
 
 def test_wrapper_rejects_a_cpu_cuda_mix(cuda):

@@ -110,7 +110,10 @@ def test_state_from_reference_checks_shape_and_dtype():
 def test_unported_layout_raises():
     FFT = tslab.R2C(np.array(N), np.array([TAU] * 3), None, "single",
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the packed layout's envelope is the reference's: (N2/2) % 128 == 0
+    with pytest.raises(ValueError, match="packed"):
         TNS(FFT, nu=0.01, dt=0.01, spectral_layout="packed")
+    with pytest.raises(ValueError):
+        TNS(FFT, nu=0.01, dt=0.01, spectral_layout="wide")
     with pytest.raises(ValueError):
         TNS(FFT, nu=0.01, dt=0.01, integrator="RK3")
