@@ -8,9 +8,10 @@ Phases, each checked; any failed check makes the exit code non-zero:
 0. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 1. build the CUDA kernels from ``mpifft4py_tpu_torch/ops/csrc`` (nvcc);
 2. kernels: each hand-written kernel against its plain twin on the card,
-   at the shapes of the 256³ and 512³ transforms and of the 256³ packed
-   NS3D step, the cross kernel also at a 512-class plane (relative 1e-5),
-   with each kernel's time beside its twin's;
+   at the shapes of the 256³ and 512³ transforms, of the 256³ packed
+   NS3D step and of the 256³ 3/2-rule and C2C transforms (C2C's 3/2 rule
+   at 384³ on every axis), the cross kernel also at a 512-class plane
+   (relative 1e-5), with each kernel's time beside its twin's;
 3. transforms: ``slab.R2C`` at 256³ and 512³ against float64
    ``torch.fft.rfftn``, the round trip, the 2/3-rule forward, and the
    round-trip time beside ``torch.fft``'s;
@@ -18,11 +19,23 @@ Phases, each checked; any failed check makes the exit code non-zero:
    against the same run in ``precision="double"``;
 5. packed solver: the same 5 steps with ``spectral_layout="packed"``,
    against the complex-layout float32 and float64 runs, with its ms per
-   step and peak memory beside the complex layout's.
+   step and peak memory beside the complex layout's;
+6. padded solver: the same 5 steps with ``dealias="3/2-rule"`` (the
+   nonlinear term on the 384³ grid), against the same run in "double",
+   beside the 2/3-rule complex step.
 
-Phases 3–5 are the main path: each runs with the kernels' launch counters
-set to 0 just before it and read just after, and phases 4–5 also read them
-around each of their steps.  The second-to-last line is ``{"kernels": [...]}``; the last is
+Phase 3 also runs the 3/2-rule transforms at 256³ (the padded round trip,
+the forward of a product field against a float64 alias-sum oracle) and
+``slab.C2C`` (forward against float64 ``torch.fft.fftn``, round trip, and
+the 3/2-rule round trip and forward, the latter against float64 ``fftn``
+on the 384³ grid truncated to 256³).
+Phases 3–6 are the main path: each runs with the kernels' launch counters
+set to 0 just before it and read just after, and phases 4–6 also read them
+around each of their steps.  Each kernel's time is its median beside its
+plain twin's and, where one exists, one ``torch.fft`` call's computing the
+same function, with the bound of its bytes at 3.35 TB/s and of its FFT
+flops (5 n log2 n a complex transform, half that a real one) at 67 TFLOP/s
+FP32.  The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -51,11 +64,18 @@ KERNELS = {
                      f"{PALLAS}:1805 (row 12); {PALLAS}:1755 (row 13)"),
     "fft_x_epilogue": (f"{CSRC}/fft_x_epilogue.cu",
                        f"{PALLAS}:1981 (row 14)"),
+    "planar_rfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:439 (row 8)"),
+    "planar_irfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:477 (row 9)"),
+    "fft_last": (f"{CSRC}/fft_last.cu", f"{PALLAS}:531 (row 10)"),
 }
 NU, DT = 0.000625, 0.01
 TRANSFORM_KERNELS = ("fft_axis", "packed_rfft_last", "packed_irfft_last")
+PADDED_KERNELS = ("fft_axis", "planar_rfft_last", "planar_irfft_last")
 PACKED_STEP_KERNELS = ("curl_ifft_x", "cross_rfft_z", "fft_x_epilogue",
                        "fft_axis", "packed_irfft_last")
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+FP32_FLOPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
+P3 = 1.5 ** 3                 # padsize³ of the 3/2 rule
 
 failures = []
 
@@ -85,6 +105,22 @@ def rel_err(torch, got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def fft_flops(points, n, real=False):
+    """FFT flops of ``points`` samples in transforms of length n."""
+    return (2.5 if real else 5.0) * points * np.log2(n)
+
+
+def bound(bytes_moved, flops):
+    """The least time (ms) of the larger of the two bounds, and its name."""
+    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_f = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
 def packed_vectors(n):
     """The packed NS3D step's 1-D wavenumbers and 2/3-rule masks at n³
     (L = 2π): k0, k1, k2, m0, m1, m2 on the card."""
@@ -95,7 +131,7 @@ def packed_vectors(n):
 
 
 def kernel_phase(torch, p3, rng):
-    """Each kernel against its twin; returns {name: (max_abs_err, ms, plain_ms)}."""
+    """Each kernel against its twin; returns {name: its JSON numbers}."""
     def cu(shape):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).cuda()
@@ -166,28 +202,104 @@ def kernel_phase(torch, p3, rng):
     epi_ref = (lambda: p3.fft_x_epilogue_packed_ref(ur, ui, sr, si, *km, NU))
     compare("fft_x_epilogue", "256^3 project", tuple(epi()), tuple(epi_ref()))
 
-    # times at the 256^3 main-path shapes, kernel beside twin, in turns
-    xr, xi, u = cu((256, 256, 128)), cu((256, 256, 128)), cu((256, 256, 256))
+    # the 3/2 rule's kernels at the 256^3 padded pipeline's shapes (a
+    # 3-stack on the 384^3 grid, Nf = 129), and the C2C chain's last axis
+    u, u3 = cu((256, 256, 256)), cu((3, 384, 384, 384))
+    compare("planar_rfft_last", "(3, 384^3) nf=129, doubled, scale 1/1.5^3",
+            p3.rfft_last_planar(u3, 129, 1 / P3),
+            p3.rfft_last_planar_ref(u3, 129, 1 / P3))
+    compare("planar_rfft_last", "256^3 nf=None", p3.rfft_last_planar(u),
+            p3.rfft_last_planar_ref(u))
+    pr, pi = cu((3, 384, 384, 129)), cu((3, 384, 384, 129))
+    compare("planar_irfft_last", "(3, 384, 384, 129) -> 384, nf_in=129, "
+            "scale 1.5^3", p3.irfft_last_planar(pr, pi, 384, 129, P3),
+            p3.irfft_last_planar_ref(pr, pi, 384, 129, P3))
+    for axis, shape in ((2, (3, 384, 384, 129)), (1, (3, 384, 256, 129))):
+        ar, ai = cu(shape), cu(shape)
+        for inv in (False, True):
+            compare("fft_axis", f"3/2-rule {shape} axis {axis} inverse={inv}",
+                    p3.fft_axis_planar(ar, ai, axis, inv),
+                    p3.fft_axis_planar_ref(ar, ai, axis, inv))
+    del ar, ai
+    # C2C at 256^3 and under the 3/2 rule on the whole 384^3 grid (384-point
+    # rows: the radix-3 plan, 10 rows a block; x and y at full width), the
+    # scale the 3/2 chain folds into its z stage included
+    cr, ci = cu((256, 256, 256)), cu((256, 256, 256))
+    for inv in (False, True):
+        compare("fft_last", f"256^3 inverse={inv}",
+                p3.fft_last_planar_c2c(cr, ci, inv),
+                p3.fft_last_planar_c2c_ref(cr, ci, inv))
+    ar, ai = cu((384, 384, 384)), cu((384, 384, 384))
+    for inv, sc in ((False, 1 / P3), (True, P3)):
+        compare("fft_last", f"384^3 inverse={inv} scale={sc:.6g}",
+                p3.fft_last_planar_c2c(ar, ai, inv, sc),
+                p3.fft_last_planar_c2c_ref(ar, ai, inv, sc))
+        for axis in (0, 1):
+            compare("fft_axis", f"C2C 3/2-rule 384^3 axis {axis} "
+                                f"inverse={inv}",
+                    p3.fft_axis_planar(ar, ai, axis, inv),
+                    p3.fft_axis_planar_ref(ar, ai, axis, inv))
+    del ar, ai
+
+    # times at the main path's shapes: kernel, twin and the one torch.fft
+    # call computing the same function (None for the fused kernels), in
+    # turns, with the bound of the call's bytes and flops
+    xr, xi = cu((256, 256, 128)), cu((256, 256, 128))
+    z, zc = torch.complex(xr, xi), torch.complex(cr, ci)
+    zh = torch.complex(cu((256, 256, 129)), cu((256, 256, 129)))
+    ph = torch.complex(pr, pi)
+    n3, pk3 = 256 ** 3, 3 * 256 * 256 * 128
     cases = {
         "curl_ifft_x": (lambda: p3.curl_ifft_x(ur, ui, *km[:3], True),
-                        lambda: p3.curl_ifft_x_ref(ur, ui, *km[:3], True)),
+                        lambda: p3.curl_ifft_x_ref(ur, ui, *km[:3], True),
+                        None, 3 * nbytes(ur, ui),
+                        fft_flops(2 * pk3, 256)),
         "cross_rfft_z": (lambda: p3.cross_rfft_z(a, b),
-                         lambda: p3.cross_rfft_z_ref(a, b)),
-        "fft_x_epilogue": (epi, epi_ref),
+                         lambda: p3.cross_rfft_z_ref(a, b), None,
+                         nbytes(a, b, ur, ui), fft_flops(3 * n3, 256, True)),
+        "fft_x_epilogue": (epi, epi_ref, None, 6 * nbytes(ur),
+                           fft_flops(pk3, 256)),
         "fft_axis": (lambda: p3.fft_axis_planar(xr, xi, 0),
-                     lambda: p3.fft_axis_planar_ref(xr, xi, 0)),
+                     lambda: p3.fft_axis_planar_ref(xr, xi, 0),
+                     lambda: torch.fft.fft(z, dim=0), 4 * nbytes(xr),
+                     fft_flops(xr.numel(), 256)),
         "packed_rfft_last": (lambda: p3.rfft_last_packed(u),
-                             lambda: p3.rfft_last_packed_ref(u)),
+                             lambda: p3.rfft_last_packed_ref(u),
+                             lambda: torch.fft.rfft(u, dim=-1),
+                             2 * nbytes(u), fft_flops(n3, 256, True)),
         "packed_irfft_last": (lambda: p3.irfft_last_packed(xr, xi, 256),
-                              lambda: p3.irfft_last_packed_ref(xr, xi, 256)),
+                              lambda: p3.irfft_last_packed_ref(xr, xi, 256),
+                              lambda: torch.fft.irfft(zh, n=256, dim=-1),
+                              2 * nbytes(u), fft_flops(n3, 256, True)),
+        "planar_rfft_last": (lambda: p3.rfft_last_planar(u3, 129, 1 / P3),
+                             lambda: p3.rfft_last_planar_ref(u3, 129, 1 / P3),
+                             lambda: torch.fft.rfft(u3, dim=-1),
+                             nbytes(u3, pr, pi),
+                             fft_flops(u3.numel(), 384, True)),
+        "planar_irfft_last": (
+            lambda: p3.irfft_last_planar(pr, pi, 384, 129, P3),
+            lambda: p3.irfft_last_planar_ref(pr, pi, 384, 129, P3),
+            lambda: torch.fft.irfft(ph, n=384, dim=-1), nbytes(u3, pr, pi),
+            fft_flops(u3.numel(), 384, True)),
+        "fft_last": (lambda: p3.fft_last_planar_c2c(cr, ci),
+                     lambda: p3.fft_last_planar_c2c_ref(cr, ci),
+                     lambda: torch.fft.fft(zc, dim=-1), 4 * nbytes(cr),
+                     fft_flops(cr.numel(), 256)),
     }
     out = {}
-    for name, (kern, plain) in cases.items():
+    for name, (kern, plain, lib, nb, fl) in cases.items():
         p1, k1 = median_ms(torch, plain), median_ms(torch, kern)
+        l1 = median_ms(torch, lib) if lib else None
         k2, p2 = median_ms(torch, kern), median_ms(torch, plain)
-        out[name] = (errs[name], min(k1, k2), min(p1, p2))
-        print(f"time {name} 256^3: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain twin {p1:.4f} / {p2:.4f} ms", flush=True)
+        b_ms, b_by = bound(nb, fl)
+        out[name] = dict(max_abs_err=errs[name], ms=min(k1, k2),
+                         plain_ms=min(p1, p2), bound_ms=b_ms, bound_by=b_by,
+                         library_ms=l1)
+        print(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain twin "
+              f"{p1:.4f} / {p2:.4f} ms, torch.fft "
+              f"{'none' if l1 is None else f'{l1:.4f} ms'}, bound "
+              f"{b_ms:.4f} ms ({b_by}: {nb / 1e6:.1f} MB, "
+              f"{fl / 1e9:.2f} GFLOP)", flush=True)
     return out
 
 
@@ -229,10 +341,107 @@ def transform_phase(torch, p3, R2C, rng):
         del u, FFT
 
 
-def make_solver(R2C, NavierStokes3D, precision, layout="complex"):
+def fold_full_axes(torch, c, N, axes):
+    """Truncate full (fft-layout) axes of a spectrum from M to N, summing
+    the split Nyquist (the exact aliasing of modes ±N/2)."""
+    h = N // 2
+    for ax in axes:
+        m = c.shape[ax]
+        c = torch.cat([c.narrow(ax, 0, h),
+                       c.narrow(ax, h, 1) + c.narrow(ax, m - h, 1),
+                       c.narrow(ax, m - h + 1, h - 1)], dim=ax)
+    return c
+
+
+def alias_oracle(torch, w_M, N, padsize):
+    """The exact N-grid spectrum of the M-grid field w_M, in float64: the
+    full axes fold their split Nyquist, the z-Nyquist plane is the alias
+    sum c + conj(c(−k0, −k1)) (tests/test_nyquist_alias.py's oracle)."""
+    c = fold_full_axes(torch, torch.fft.rfftn(w_M.double()) / padsize ** 3,
+                       N, (0, 1))
+    h = N // 2
+    q = c[..., h]
+    q = q + torch.roll(torch.flip(q, (0, 1)), (1, 1), (0, 1)).conj()
+    return torch.cat([c[..., :h], q[..., None]], dim=-1)
+
+
+def padded_transform_phase(torch, p3, R2C, C2C, rng):
+    """The 3/2 rule and slab.C2C at 256^3: accuracy, launches, round-trip
+    times beside torch.fft's."""
+    N = 256
+    shape = (N, N, N)
+    L = np.array([TAU] * 3)
+    FFT = R2C(np.array(shape), L, None, "single", device="cuda")
+    before = dict(p3.LAUNCHES)
+    fu = FFT.fftn(FFT.shard_real(rng.standard_normal(shape)))
+    up = FFT.ifftn(fu, dealias="3/2-rule")
+    check(tuple(up.shape) == (384,) * 3, f"3/2-rule ifftn shape {up.shape}")
+    err = rel_err(torch, FFT.fftn(up, dealias="3/2-rule"), fu)
+    check(err < 1e-6, f"R2C 256^3 3/2-rule round trip fftn(ifftn(fu)): "
+                      f"rel err {err:.3e}")
+    w = up * up
+    got = FFT.fftn(w, dealias="3/2-rule")
+    ref = alias_oracle(torch, w, N, FFT.padsize)
+    err = rel_err(torch, got, ref)
+    check(err <= 1e-5, f"R2C 256^3 3/2-rule forward of a product field vs "
+                       f"the float64 alias-sum oracle: rel err {err:.3e}")
+    del got, ref, w
+    for k in PADDED_KERNELS:
+        check(p3.LAUNCHES[k] > before[k],
+              f"3/2-rule 256^3 launched {k}: {p3.LAUNCHES[k] - before[k]}")
+    fwd, bwd = FFT.forward_fn("3/2-rule"), FFT.backward_fn("3/2-rule")
+    M = (384,) * 3
+    k1 = median_ms(torch, lambda: fwd(bwd(fu)), iters=20)
+    t1 = median_ms(torch, lambda: torch.fft.rfftn(
+        torch.fft.irfftn(fu, s=M)), iters=20)
+    t2 = median_ms(torch, lambda: torch.fft.rfftn(
+        torch.fft.irfftn(fu, s=M)), iters=20)
+    k2 = median_ms(torch, lambda: fwd(bwd(fu)), iters=20)
+    print(f"time R2C 256^3 3/2-rule round trip forward_fn(backward_fn(fu)): "
+          f"{k1:.4f} / {k2:.4f} ms; torch.fft rfftn(irfftn(fu, s=384^3)) "
+          f"float32 (the same FFT sizes, no pad or truncation): "
+          f"{t1:.4f} / {t2:.4f} ms", flush=True)
+    del fu, up, FFT
+
+    C = C2C(np.array(shape), L, None, "single", device="cuda")
+    before = p3.LAUNCHES["fft_last"]
+    u = C.shard_real(rng.standard_normal(shape)
+                     + 1j * rng.standard_normal(shape))
+    fu = C.fftn(u)
+    err = rel_err(torch, fu, torch.fft.fftn(u.to(torch.complex128)))
+    check(err <= 1e-5, f"C2C 256^3 fftn vs float64 fftn: rel err {err:.3e}")
+    err = rel_err(torch, C.ifftn(fu), u)
+    check(err < 1e-6, f"C2C 256^3 ifftn(fftn(u)) round trip: rel err "
+                      f"{err:.3e}")
+    err = rel_err(torch, C.fftn(C.ifftn(fu, dealias="3/2-rule"),
+                                dealias="3/2-rule"), fu)
+    check(err < 1e-6, f"C2C 256^3 3/2-rule round trip: rel err {err:.3e}")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    w = torch.randn((384,) * 3, generator=g, device="cuda",
+                    dtype=torch.complex64)
+    ref = fold_full_axes(torch, torch.fft.fftn(w.to(torch.complex128))
+                         / C.padsize ** 3, N, (0, 1, 2))
+    err = rel_err(torch, C.fftn(w, dealias="3/2-rule"), ref)
+    check(err <= 1e-5, f"C2C 256^3 3/2-rule forward of a random 384^3 field "
+                       f"vs float64 fftn, truncated: rel err {err:.3e}")
+    del w, ref
+    check(p3.LAUNCHES["fft_last"] > before,
+          f"C2C 256^3 launched fft_last: {p3.LAUNCHES['fft_last'] - before}")
+    fwd, bwd = C.forward_fn(), C.backward_fn()
+    k1 = median_ms(torch, lambda: bwd(fwd(u)))
+    t1 = median_ms(torch, lambda: torch.fft.ifftn(torch.fft.fftn(u)))
+    t2 = median_ms(torch, lambda: torch.fft.ifftn(torch.fft.fftn(u)))
+    k2 = median_ms(torch, lambda: bwd(fwd(u)))
+    print(f"time C2C 256^3 round trip backward_fn()(forward_fn()(u)): "
+          f"{k1:.4f} / {k2:.4f} ms; torch.fft ifftn(fftn(u)) complex64: "
+          f"{t1:.4f} / {t2:.4f} ms", flush=True)
+
+
+def make_solver(R2C, NavierStokes3D, precision, layout="complex",
+                dealias="2/3-rule"):
     FFT = R2C(np.array([256] * 3), np.array([TAU] * 3), None, precision,
               device="cuda")
-    return NavierStokes3D(FFT, nu=NU, dt=DT, dealias="2/3-rule",
+    return NavierStokes3D(FFT, nu=NU, dt=DT, dealias=dealias,
                           integrator="RK4", spectral_layout=layout)
 
 
@@ -317,6 +526,29 @@ def packed_solver_phase(torch, p3, R2C, NavierStokes3D, Uc, Ud, ms_c, peak_c):
           flush=True)
 
 
+def padded_solver_phase(torch, p3, R2C, NavierStokes3D, ms_c, peak_c):
+    """The complex layout with the 3/2 rule: 5 steps against the same run
+    in "double", beside the 2/3-rule step."""
+    s = make_solver(R2C, NavierStokes3D, "single", dealias="3/2-rule")
+    U, _, ms_step, peak, steps = run_steps(torch, p3, s, "3/2-rule NS3D 256^3")
+    for k in PADDED_KERNELS:
+        check(steps[k] > 0, f"3/2-rule NS3D 256^3 steps launched {k}: "
+                            f"{steps[k]}")
+    print(f"3/2-rule NS3D 256^3 launches in 5 steps: {steps}", flush=True)
+    d = make_solver(R2C, NavierStokes3D, "double", dealias="3/2-rule")
+    W = d.taylor_green()
+    for _ in range(5):
+        W = d.step(W)
+    err = rel_l2(torch, U, W)
+    check(err <= 1e-5, f"3/2-rule NS3D 256^3 single vs double after 5 steps: "
+                       f"rel L2 err {err:.3e}")
+    print(f"time NS3D 256^3 RK4 single complex layout: 3/2-rule "
+          f"{ms_step:.3f} ms/step, 2/3-rule {ms_c:.3f} ms/step (host clock "
+          f"over 5 steps, synchronised); peak step memory above the "
+          f"resident: 3/2-rule {peak / 2**30:.3f} GiB, 2/3-rule "
+          f"{peak_c / 2**30:.3f} GiB", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -324,7 +556,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     from mpifft4py_tpu_torch.ops import _build, fft3d as p3
-    from mpifft4py_tpu_torch.slab import R2C
+    from mpifft4py_tpu_torch.slab import C2C, R2C
     from mpifft4py_tpu_torch.models.navier_stokes import NavierStokes3D
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -361,9 +593,12 @@ def main():
         return out
 
     path(transform_phase, torch, p3, R2C, rng)
+    path(padded_transform_phase, torch, p3, R2C, C2C, rng)
     Uc, Ud, ms_c, peak_c = path(solver_phase, torch, p3, R2C, NavierStokes3D)
     path(packed_solver_phase, torch, p3, R2C, NavierStokes3D, Uc, Ud, ms_c,
          peak_c)
+    del Uc, Ud
+    path(padded_solver_phase, torch, p3, R2C, NavierStokes3D, ms_c, peak_c)
     for k, n in launches.items():
         check(n > 0, f"main path launched {k} {n} times")
 
@@ -373,8 +608,7 @@ def main():
     print(card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
-         "replaces": KERNELS[k][1], "launches": launches[k],
-         "max_abs_err": kern[k][0], "ms": kern[k][1], "plain_ms": kern[k][2]}
+         "replaces": KERNELS[k][1], "launches": launches[k], **kern[k]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

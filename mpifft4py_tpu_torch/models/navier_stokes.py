@@ -13,6 +13,8 @@ device, and ``run`` is a Python loop.
 * ``spectral_layout="complex"``: the state is a complex (3, N0, N1, Nf)
   tensor; each right-hand side does three batched transform calls
   (velocity, vorticity, nonlinear term), one launch sequence per 3-stack.
+  Under ``dealias="3/2-rule"`` the velocity and vorticity come back on the
+  padded grid and the nonlinear term's forward truncates to the N grid.
 * ``spectral_layout="packed"``: the state is the packed planar float32 pair
   carried as ONE (2, 3, N0, N1, N2/2) tensor (``[0]``/``[1]`` are the
   contiguous re/im planes, so each integrator axpy is one launch), with no
@@ -77,6 +79,10 @@ class SpectralSolver:
         self._fwd = FFT.forward_fields_fn(dealias=dealias)
         self._fwd_plain = FFT.forward_fields_fn()
         self._bwd = FFT.backward_fields_fn()
+        # 3/2 rule: the nonlinear term is formed on the padsize×-refined
+        # grid; the 2/3 rule works on the N grid with the mask in _fwd
+        self._bwd_nl = (FFT.backward_fields_fn(dealias)
+                        if dealias == "3/2-rule" else self._bwd)
 
     def _factored_k(self):
         """1-D scaled wavenumbers (k0, k1, k2) matching
@@ -252,8 +258,10 @@ class NavierStokes3D(SpectralSolver):
       FFT: a ``slab.R2C`` instance.
       nu: kinematic viscosity.
       dt: timestep.
-      dealias: None | "2/3-rule", applied to the nonlinear term's forward
-        transform.
+      dealias: None | "2/3-rule" | "3/2-rule", applied to the nonlinear
+        term: the 2/3 rule masks its forward transform; the 3/2 rule forms
+        U × ω on the padded grid M = padsize·N and truncates it back (not
+        with ``spectral_layout="packed"``, as in the reference).
       integrator: one of INTEGRATORS.
       forcing_band, forcing_rate: ``(k_lo, k_hi)`` and ε of the
         constant-energy-injection band forcing f̂ = ε·û/(2·E_band) on modes
@@ -275,13 +283,20 @@ class NavierStokes3D(SpectralSolver):
     def taylor_green(self):
         """Taylor–Green vortex in spectral space: (3,) +
         global_complex_shape(), or the packed (2, 3, N0, N1, N2/2) state
-        under spectral_layout='packed'."""
-        X = self.FFT.get_local_mesh()
-        u = torch.stack([
-            torch.sin(X[0]) * torch.cos(X[1]) * torch.cos(X[2]),
-            -torch.cos(X[0]) * torch.sin(X[1]) * torch.cos(X[2]),
-            torch.zeros_like(X[0]),
-        ])
+        under spectral_layout='packed'.
+
+        The field is formed from the sines and cosines of the 1-D
+        coordinates, broadcast: the same products as over the 3-D mesh, with
+        N0 + N1 + N2 evaluations of sin/cos instead of 6·N0·N1·N2 (on the
+        CPU, the first multithreaded float32 sin/cos of a process can come
+        out inaccurate in its last digits; small 1-D calls stay off that
+        path)."""
+        x0, x1, x2 = self.FFT._local_coords()
+        s0, c0 = torch.sin(x0)[:, None, None], torch.cos(x0)[:, None, None]
+        s1, c1 = torch.sin(x1)[None, :, None], torch.cos(x1)[None, :, None]
+        c2 = torch.cos(x2)[None, None, :]
+        u0 = s0 * c1 * c2
+        u = torch.stack([u0, -c0 * s1 * c2, torch.zeros_like(u0)])
         fu = self._fwd_plain(u)
         return self.to_packed(fu) if self.spectral_layout == "packed" else fu
 
@@ -290,10 +305,11 @@ class NavierStokes3D(SpectralSolver):
         K0 = k0[:, None, None]
         K1 = k1[None, :, None]
         K2v = k2[None, None, :]
-        U = self._bwd(U_hat)
+        U = self._bwd_nl(U_hat)
         # vorticity: ω = ifftn(i K × U_hat)
-        W = self._bwd(1j * kcross((K0, K1, K2v), U_hat))
-        # nonlinear term F = U × ω, transformed with dealiasing
+        W = self._bwd_nl(1j * kcross((K0, K1, K2v), U_hat))
+        # nonlinear term F = U × ω (on the M grid under the 3/2 rule),
+        # transformed with dealiasing back to the N grid
         F_hat = self._fwd(cross(U, W))
         del U, W
         # Leray projection + viscous term

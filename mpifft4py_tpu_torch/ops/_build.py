@@ -24,7 +24,8 @@ __all__ = ["load", "build_dir", "last_build_seconds", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fft_axis.cu", "packed_rfft.cu", "curl_ifft_x.cu",
-           "cross_rfft_z.cu", "fft_x_epilogue.cu")
+           "cross_rfft_z.cu", "fft_x_epilogue.cu", "planar_rfft.cu",
+           "fft_last.cu")
 HEADERS = ("fft_block.cuh", "packed_z.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +47,12 @@ _SIGNATURES = {
     # fr, fi, sr, si, k0, k1, k2, m0, m1, m2, yr, yi, tw, n, n1, h, visc,
     # stream
     "fft_x_epilogue_launch": (_P,) * 13 + (_I, _I, _I, ctypes.c_float, _P),
+    # x, yr, yi, tw_h, tw_n, rows, n, nf, dbl, scale, stream
+    "planar_rfft_launch": (_P,) * 5 + (_L, _I, _I, _I, ctypes.c_float, _P),
+    # xr, xi, y, tw_h, tw_n, rows, n, nf_in, scale, stream
+    "planar_irfft_launch": (_P,) * 5 + (_L, _I, _I, ctypes.c_float, _P),
+    # xr, xi, yr, yi, tw, rows, n, inverse, scale, stream
+    "fft_last_launch": (_P,) * 5 + (_L, _I, _I, ctypes.c_float, _P),
 }
 
 _lib = None

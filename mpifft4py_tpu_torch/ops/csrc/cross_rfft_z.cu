@@ -26,8 +26,6 @@ using fftblock::Plan;
 
 namespace {
 
-constexpr int kTile = 4096;  // complex values per component per block
-
 __global__ void __launch_bounds__(1024)
 cross_rfft_z_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     float* __restrict__ yr, float* __restrict__ yi,
@@ -83,22 +81,16 @@ extern "C" int cross_rfft_z_launch(const float* a, const float* b, float* yr,
                                    float* yi, const void* tw_h,
                                    const void* tw_n, long long rows, int n,
                                    void* stream) {
-  const int h = n / 2;
-  const Plan plan = fftblock::make_plan(h);
-  if (n % 2 || plan.nst == 0 || n > 2048 || rows < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int RB = kTile / h > 1 ? kTile / h : 1;
-  const long long blocks = (rows + RB - 1) / RB;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(h) * (3 * RB + 1) * sizeof(float2);
+  fftblock::RowGeometry g;
+  const int bad = packedz::half_geometry(n, rows, &g, 3);
+  if (bad) return bad;
   cudaError_t err = cudaFuncSetAttribute(
       cross_rfft_z_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(g.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = fftblock::threads_for(h * 3 * RB);
-  cross_rfft_z_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+  cross_rfft_z_kernel<<<g.blocks, g.threads, g.smem,
                         static_cast<cudaStream_t>(stream)>>>(
       a, b, yr, yi, static_cast<const float2*>(tw_h),
-      static_cast<const float2*>(tw_n), plan, n, rows, RB);
+      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB);
   return static_cast<int>(cudaGetLastError());
 }

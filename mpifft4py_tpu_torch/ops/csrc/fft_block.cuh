@@ -161,6 +161,35 @@ inline int threads_for(int elems) {
   return ((t + 31) / 32) * 32;
 }
 
+constexpr int kTile = 4096;  // complex values per component per row block
+
+// Launch geometry of a row kernel: one m-point FFT on each of `rows`
+// contiguous rows, `comps` components side by side.  RB rows a block
+// (m * RB <= kTile), a tile of m x (comps * RB + 1) float2 (an odd pitch
+// where comps * RB is even spreads the strided accesses over the banks).
+struct RowGeometry {
+  Plan plan;
+  int RB;
+  unsigned blocks;
+  size_t smem;
+  int threads;
+};
+
+// Returns 0 and fills `g`, or cudaErrorInvalidValue outside the envelope.
+inline int row_geometry(int m, long long rows, RowGeometry* g,
+                        int comps = 1) {
+  g->plan = make_plan(m);
+  if (g->plan.nst == 0 || m > 1024 || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  g->RB = kTile / m > 1 ? kTile / m : 1;
+  const long long b = (rows + g->RB - 1) / g->RB;
+  if (b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  g->blocks = static_cast<unsigned>(b);
+  g->smem = static_cast<size_t>(m) * (comps * g->RB + 1) * sizeof(float2);
+  g->threads = threads_for(m * comps * g->RB);
+  return 0;
+}
+
 // Columns per component for a block that transforms three components side
 // by side (a tile of n rows x 3T columns): the largest T of 16, 8, 4, 2, 1
 // that keeps the tile within one 1024-thread block.  T = 16 up to n = 256

@@ -28,8 +28,6 @@ using fftblock::Plan;
 
 namespace {
 
-constexpr int kTile = 4096;  // complex values per block
-
 __global__ void __launch_bounds__(1024)
 packed_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
                    float* __restrict__ yi, const float2* __restrict__ tw_h,
@@ -110,22 +108,6 @@ packed_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// Shared launch bookkeeping: returns 0 and fills the geometry, or an error.
-int geometry(int n, long long rows, Plan* plan, int* RB, unsigned* blocks,
-             size_t* smem, int* threads) {
-  const int h = n / 2;
-  *plan = fftblock::make_plan(h);
-  if (n % 2 || plan->nst == 0 || n > 2048 || rows < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  *RB = kTile / h > 1 ? kTile / h : 1;
-  const long long b = (rows + *RB - 1) / *RB;
-  if (b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  *blocks = static_cast<unsigned>(b);
-  *smem = static_cast<size_t>(h) * (*RB + 1) * sizeof(float2);
-  *threads = fftblock::threads_for(h * *RB);
-  return 0;
-}
-
 }  // namespace
 
 // Forward: x (rows, n) real -> (yr, yi) (rows, n/2).  tw_h: n/2 float2 of
@@ -133,20 +115,17 @@ int geometry(int n, long long rows, Plan* plan, int* RB, unsigned* blocks,
 extern "C" int packed_rfft_launch(const float* x, float* yr, float* yi,
                                   const void* tw_h, const void* tw_n,
                                   long long rows, int n, void* stream) {
-  Plan plan;
-  int RB, threads;
-  unsigned blocks;
-  size_t smem;
-  int bad = geometry(n, rows, &plan, &RB, &blocks, &smem, &threads);
+  fftblock::RowGeometry g;
+  const int bad = packedz::half_geometry(n, rows, &g);
   if (bad) return bad;
   cudaError_t err = cudaFuncSetAttribute(
       packed_rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(g.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  packed_rfft_kernel<<<blocks, threads, smem,
+  packed_rfft_kernel<<<g.blocks, g.threads, g.smem,
                        static_cast<cudaStream_t>(stream)>>>(
       x, yr, yi, static_cast<const float2*>(tw_h),
-      static_cast<const float2*>(tw_n), plan, n, rows, RB);
+      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -155,19 +134,16 @@ extern "C" int packed_rfft_launch(const float* x, float* yr, float* yi,
 extern "C" int packed_irfft_launch(const float* xr, const float* xi, float* y,
                                    const void* tw_h, const void* tw_n,
                                    long long rows, int n, void* stream) {
-  Plan plan;
-  int RB, threads;
-  unsigned blocks;
-  size_t smem;
-  int bad = geometry(n, rows, &plan, &RB, &blocks, &smem, &threads);
+  fftblock::RowGeometry g;
+  const int bad = packedz::half_geometry(n, rows, &g);
   if (bad) return bad;
   cudaError_t err = cudaFuncSetAttribute(
       packed_irfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(g.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  packed_irfft_kernel<<<blocks, threads, smem,
+  packed_irfft_kernel<<<g.blocks, g.threads, g.smem,
                         static_cast<cudaStream_t>(stream)>>>(
       xr, xi, y, static_cast<const float2*>(tw_h),
-      static_cast<const float2*>(tw_n), plan, n, rows, RB);
+      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB);
   return static_cast<int>(cudaGetLastError());
 }

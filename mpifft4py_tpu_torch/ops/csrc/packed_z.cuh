@@ -1,14 +1,18 @@
-// The untangle step of the packed-Hermitian r2c along the last axis.
+// The half-length r2c along the last axis: the untangle step and the launch
+// geometry of the row kernels built on it.
 //
 // A real row x of length n = 2h is transformed as one h-point complex FFT
 // of z_t = x[2t] + i*x[2t+1]; the untangle turns its spectrum Z into the
 // packed X (h columns, column 0 holding X[0] + i*X[n/2]):
 //   X[k] = (Z[k] + conj Z[h-k])/2 + e^{-2 pi i k/n} (Z[k] - conj Z[h-k])/(2i).
-// Shared by packed_rfft.cu (the plain r2c) and cross_rfft_z.cu (the cross
-// product with the r2c behind it).
+// Shared by packed_rfft.cu (the plain r2c), planar_rfft.cu (the r2c/c2r of
+// the 3/2 rule) and cross_rfft_z.cu (the cross product with the r2c behind
+// it).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "fft_block.cuh"
 
 namespace packedz {
 
@@ -26,6 +30,13 @@ __device__ __forceinline__ float2 untangle(const float2* s, int pitch,
   const float Oi = 0.5f * (Zf.x - Z.x);
   const float2 w = tw_n[k];
   return make_float2(Er + (w.x * Or - w.y * Oi), Ei + (w.x * Oi + w.y * Or));
+}
+
+// The row geometry of the h-point FFT of real rows of length n = 2h.
+inline int half_geometry(int n, long long rows, fftblock::RowGeometry* g,
+                         int comps = 1) {
+  if (n % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return fftblock::row_geometry(n / 2, rows, g, comps);
 }
 
 }  // namespace packedz

@@ -1,0 +1,186 @@
+// Planar r2c / c2r along the last (contiguous) axis, with the 3/2-rule
+// truncation and zero-pad folded in.
+//
+// Replaces the Pallas kernels mpifft4py_tpu/ops/pallas_fft3d.py:
+// rfft_last_planar (_rfft_kernel over _rdft_cs) and irfft_last_planar
+// (_irfft_kernel over _irdft_cs), which contract each row with dense
+// (n x nfp) DFT matrices on the MXU, nfp = nf rounded up to 128 lanes.
+// Here a spectrum has exactly nf columns (no lane padding), and the
+// transform is packed_rfft.cu's half-length algorithm: one h-point FFT of
+// z_t = x[2t] + i*x[2t+1] per row (h = n/2) and the untangle of
+// packed_z.cuh.  Only the ends differ:
+//
+// - the r2c stores columns 0..nf-1: column 0 is (X[0], 0) and column h
+//   (only when nf = h + 1) is (X[h], 0), both from the packed plane-0
+//   rider; with `dbl` column nf-1 is doubled (the Nyquist of the 3/2-rule
+//   z truncation); `scale` (1/padsize^3 there) is applied at the store;
+// - the c2r builds the packed row from nf_in columns: columns >= nf_in
+//   are zero (the pad), an interior column nf_in-1 is halved (the pad's
+//   halved Nyquist: with the c2r's weight 2 its net weight is 1), and
+//   column h rides plane 0 only when nf_in = h + 1; scale/n at the store.
+//
+// Like packed_rfft.cu it is bound by HBM bytes: 4 bytes a real sample and
+// 8 a spectral column (about 2.5 n log2 n flops a row is far below the
+// 67 TFLOP/s of FP32).  The 3/2-rule rows (n = 384, h = 192 = 3 * 64) run
+// the radix-3 stage of fft_block.cuh; RB = 21 rows a block, and the last
+// block of a stack whose row count is not a multiple of 21 is masked.
+#include <cuda_runtime.h>
+
+#include "fft_block.cuh"
+#include "packed_z.cuh"
+
+using fftblock::Plan;
+
+namespace {
+
+__global__ void __launch_bounds__(1024)
+planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
+                   float* __restrict__ yi, const float2* __restrict__ tw_h,
+                   const float2* __restrict__ tw_n, Plan plan, int n,
+                   long long rows, int RB, int nf, int dbl, float scale) {
+  extern __shared__ float2 s[];
+  const int h = n / 2;
+  const int pitch = RB + 1;
+  const long long row0 = static_cast<long long>(blockIdx.x) * RB;
+  const int elems = h * RB;
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const int rho = e / h;
+    const int t = e % h;
+    float2 v = make_float2(0.f, 0.f);
+    if (row0 + rho < rows)
+      v = reinterpret_cast<const float2*>(x + (row0 + rho) * n)[t];
+    s[t * pitch + rho] = v;
+  }
+  __syncthreads();
+  fftblock::block_fft(s, h, RB, pitch, plan, tw_h, -1.f);
+  // columns 0..kmax-1 come from the untangle; column h from plane 0
+  const int kmax = nf < h ? nf : h;
+  const float last = dbl ? 2.f * scale : scale;
+  for (int e = threadIdx.x; e < kmax * RB; e += blockDim.x) {
+    const int rho = e / kmax;
+    const int k = e % kmax;
+    if (row0 + rho >= rows) continue;
+    const float2 X = packedz::untangle(s, pitch, rho, k, h, tw_n);
+    const long long g = (row0 + rho) * nf;
+    const float w = k == nf - 1 ? last : scale;
+    if (k == 0) {  // X = (X[0], X[h])
+      yr[g] = X.x * w;
+      yi[g] = 0.f;
+      if (nf == h + 1) {
+        yr[g + h] = X.y * scale;
+        yi[g + h] = 0.f;
+      }
+    } else {
+      yr[g + k] = X.x * w;
+      yi[g + k] = X.y * w;
+    }
+  }
+}
+
+// Column k (0 <= k < h) of the packed form of a planar row at g with
+// nf_in columns: P_0 = X[0] + i*X[h] (X[h] = 0 unless nf_in = h + 1),
+// P_k = X[k] below nf_in, the interior column nf_in-1 halved.
+__device__ __forceinline__ float2 packed_in(const float* __restrict__ xr,
+                                            const float* __restrict__ xi,
+                                            long long g, int k, int h,
+                                            int nf_in) {
+  if (k == 0) return make_float2(xr[g], nf_in == h + 1 ? xr[g + h] : 0.f);
+  if (k >= nf_in) return make_float2(0.f, 0.f);
+  const float w = k == nf_in - 1 ? 0.5f : 1.f;
+  return make_float2(w * xr[g + k], w * xi[g + k]);
+}
+
+__global__ void __launch_bounds__(1024)
+planar_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                    float* __restrict__ y, const float2* __restrict__ tw_h,
+                    const float2* __restrict__ tw_n, Plan plan, int n,
+                    long long rows, int RB, int nf_in, float scale) {
+  extern __shared__ float2 s[];
+  const int h = n / 2;
+  const int pitch = RB + 1;
+  const long long row0 = static_cast<long long>(blockIdx.x) * RB;
+  const int elems = h * RB;
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const int rho = e / h;
+    const int k = e % h;
+    float2 Z = make_float2(0.f, 0.f);
+    if (row0 + rho < rows) {
+      const long long g = (row0 + rho) * nf_in;
+      const float2 X = packed_in(xr, xi, g, k, h, nf_in);
+      if (k == 0) {
+        // E0 = X[0] + X[h], O0 = X[0] - X[h]
+        Z = make_float2(X.x + X.y, X.x - X.y);
+      } else {
+        const float2 Xf = packed_in(xr, xi, g, h - k, h, nf_in);
+        const float Er = X.x + Xf.x;  // 2 E = X + conj X[h-k]
+        const float Ei = X.y - Xf.y;
+        const float Dr = X.x - Xf.x;  // 2 e^{-2 pi i k/n} O = X - conj X[h-k]
+        const float Di = X.y + Xf.y;
+        const float2 w = tw_n[k];     // exp(+2 pi i k / n)
+        const float Or = w.x * Dr - w.y * Di;
+        const float Oi = w.x * Di + w.y * Dr;
+        Z = make_float2(Er - Oi, Ei + Or);  // 2 (E + i O)
+      }
+    }
+    s[k * pitch + rho] = Z;
+  }
+  __syncthreads();
+  fftblock::block_fft(s, h, RB, pitch, plan, tw_h, 1.f);
+  const float sc = scale / static_cast<float>(n);
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const int rho = e / h;
+    const int t = e % h;
+    if (row0 + rho >= rows) continue;
+    const float2 z = s[t * pitch + rho];
+    reinterpret_cast<float2*>(y + (row0 + rho) * n)[t] =
+        make_float2(z.x * sc, z.y * sc);
+  }
+}
+
+}  // namespace
+
+// Forward: x (rows, n) real -> (yr, yi) (rows, nf), 2 <= nf <= n/2 + 1;
+// dbl doubles column nf-1; every column is multiplied by scale.  tw_h: n/2
+// float2 of exp(-2 pi i m/(n/2)); tw_n: n/2 float2 of exp(-2 pi i k/n).
+extern "C" int planar_rfft_launch(const float* x, float* yr, float* yi,
+                                  const void* tw_h, const void* tw_n,
+                                  long long rows, int n, int nf, int dbl,
+                                  float scale, void* stream) {
+  fftblock::RowGeometry g;
+  const int bad = packedz::half_geometry(n, rows, &g);
+  if (bad) return bad;
+  if (nf < 2 || nf > n / 2 + 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      planar_rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(g.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  planar_rfft_kernel<<<g.blocks, g.threads, g.smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, yr, yi, static_cast<const float2*>(tw_h),
+      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB, nf, dbl,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Inverse: (xr, xi) (rows, nf_in) -> y (rows, n) real, 2 <= nf_in <=
+// n/2 + 1, scaled by scale/n.  tw_h and tw_n as above with the opposite
+// sign, exp(+...).
+extern "C" int planar_irfft_launch(const float* xr, const float* xi, float* y,
+                                   const void* tw_h, const void* tw_n,
+                                   long long rows, int n, int nf_in,
+                                   float scale, void* stream) {
+  fftblock::RowGeometry g;
+  const int bad = packedz::half_geometry(n, rows, &g);
+  if (bad) return bad;
+  if (nf_in < 2 || nf_in > n / 2 + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      planar_irfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(g.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  planar_irfft_kernel<<<g.blocks, g.threads, g.smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, y, static_cast<const float2*>(tw_h),
+      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB, nf_in, scale);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -5,11 +5,16 @@ packed-Hermitian planar layout.  Kernel functions take and return planar
 ``(re, im)`` float32 pairs; a packed spectrum sits in h = n/2 columns with
 column 0 holding X[0] + i·X[n/2].
 
-Six CUDA kernels (``csrc/``) carry the path:
+Nine CUDA kernels (``csrc/``) carry the path:
 
 * ``fft_axis`` (``fft_axis_planar``): c2c along a non-last axis;
 * ``packed_rfft_last`` / ``packed_irfft_last`` (``rfft_last_packed`` /
   ``irfft_last_packed``): packed r2c / c2r along the last axis;
+* ``planar_rfft_last`` / ``planar_irfft_last`` (``rfft_last_planar`` /
+  ``irfft_last_planar``): r2c / c2r along the last axis into / from exactly
+  nf columns, with the 3/2 rule's truncation, zero-pad and scale folded in;
+* ``fft_last`` (``fft_last_planar_c2c``): c2c along the last axis, the first
+  stage of ``cfft3d`` and of ``slab.C2C``'s 3/2-rule chain;
 * the packed NS3D right-hand side's fused kernels: ``curl_ifft_x`` (the
   curl with the x inverse, for ``curl_irfft3d_packed``), ``cross_rfft_z``
   (the cross product with the packed z r2c, for ``cross_rfft_zy_packed``)
@@ -42,11 +47,13 @@ __all__ = [
     "purify_plane0", "rfft3d", "irfft3d", "purify_plane0_dus",
     "curl_fused_ok", "cross_zy_ok", "fft_x_epilogue_ok", "curl_ifft_x",
     "curl_irfft3d_packed", "cross_rfft_z", "cross_rfft_zy_packed",
-    "fft_x_epilogue_packed", "cross", "kcross",
+    "fft_x_epilogue_packed", "cross", "kcross", "rfft_last_planar",
+    "irfft_last_planar", "fft_last_planar_c2c", "cfft3d",
 ]
 
 LAUNCHES = {"fft_axis": 0, "packed_rfft_last": 0, "packed_irfft_last": 0,
-            "curl_ifft_x": 0, "cross_rfft_z": 0, "fft_x_epilogue": 0}
+            "curl_ifft_x": 0, "cross_rfft_z": 0, "fft_x_epilogue": 0,
+            "planar_rfft_last": 0, "planar_irfft_last": 0, "fft_last": 0}
 
 _ITEM_FAMILY = "ROADMAP.md queue 1 item 7 (the model family)"
 
@@ -203,6 +210,126 @@ def irfft_last_packed(xr, xi, n: int):
             _twiddles(n, h, 1, xr.device).data_ptr(),
             xr.numel() // h, n, device=xr.device)
     return y
+
+
+# -- planar r2c / c2r along the last axis (the 3/2 rule) ----------------------------
+#
+# The reference pads the spectral width to a multiple of 128 lanes (a TPU
+# workaround); the port's spectra have exactly nf columns.
+
+def rfft_last_planar_ref(x, nf=None, scale: float = 1.0):
+    full = x.shape[-1] // 2 + 1
+    nf = full if nf is None else nf
+    X = torch.fft.rfft(x, dim=-1)[..., :nf]
+    if nf < full:
+        X = torch.cat([X[..., :-1], 2.0 * X[..., -1:]], dim=-1)
+    X = X * scale
+    return X.real.contiguous(), X.imag.contiguous()
+
+
+def rfft_last_planar(x, nf=None, scale: float = 1.0):
+    """real (…, n) -> planar (re, im) of shape (…, nf), nf = n//2+1 when
+    None.  ``nf`` < n//2+1 truncates with column nf−1 doubled (the 3/2
+    rule's z truncation); ``scale`` multiplies every column."""
+    on_cpu = _check_float32(x)
+    n = int(x.shape[-1])
+    full = n // 2 + 1
+    nf = full if nf is None else int(nf)
+    if not supported_r2c(n) or not 2 <= nf <= full:
+        raise ValueError(f"rfft_last_planar: n={n}, nf={nf} outside the "
+                         f"kernel envelope")
+    if on_cpu:
+        return rfft_last_planar_ref(x, nf, scale)
+    h = n // 2
+    yr = torch.empty(x.shape[:-1] + (nf,), dtype=torch.float32,
+                     device=x.device)
+    yi = torch.empty_like(yr)
+    _launch("planar_rfft_last", "planar_rfft_launch", x.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(),
+            _twiddles(h, h, -1, x.device).data_ptr(),
+            _twiddles(n, h, -1, x.device).data_ptr(),
+            x.numel() // n, n, nf, int(nf < full), float(scale),
+            device=x.device)
+    return yr, yi
+
+
+def irfft_last_planar_ref(xr, xi, n: int, nf_in=None, scale: float = 1.0):
+    cut = n // 2 + 1 if nf_in is None else nf_in
+    X = torch.complex(xr[..., :cut], xi[..., :cut])
+    if cut < n // 2 + 1:
+        # the pad's halved Nyquist: net weight 1 after the c2r's 2
+        X = torch.cat([X[..., :-1], 0.5 * X[..., -1:]], dim=-1)
+    return (torch.fft.irfft(X, n=n, dim=-1) * scale).contiguous()
+
+
+def irfft_last_planar(xr, xi, n: int, nf_in=None, scale: float = 1.0):
+    """planar (…, nf_in) -> real (…, n), scaled by ``scale``/n; nf_in =
+    n//2+1 when None.  ``nf_in`` < n//2+1 zero-pads to n//2+1 with the
+    input's last column at weight 1 (the 3/2 rule's z pad, whose Nyquist
+    split halves it); the width must be exactly nf_in."""
+    on_cpu = _check_float32(xr, xi)
+    _check_pair(xr, xi)
+    full = n // 2 + 1
+    cut = full if nf_in is None else int(nf_in)
+    if not supported_r2c(n) or not 2 <= cut <= full or xr.shape[-1] != cut:
+        raise ValueError(f"irfft_last_planar: n={n}, nf_in={cut} with width "
+                         f"{xr.shape[-1]} outside the kernel envelope")
+    if on_cpu:
+        return irfft_last_planar_ref(xr, xi, n, cut, scale)
+    h = n // 2
+    y = torch.empty(xr.shape[:-1] + (n,), dtype=torch.float32,
+                    device=xr.device)
+    _launch("planar_irfft_last", "planar_irfft_launch", xr.data_ptr(),
+            xi.data_ptr(), y.data_ptr(),
+            _twiddles(h, h, 1, xr.device).data_ptr(),
+            _twiddles(n, h, 1, xr.device).data_ptr(),
+            xr.numel() // cut, n, cut, float(scale), device=xr.device)
+    return y
+
+
+# -- c2c along the last axis and the full 3D c2c chain ------------------------------
+
+def fft_last_planar_c2c_ref(xr, xi, inverse: bool = False,
+                            scale: float = 1.0):
+    yr, yi = fft_axis_planar_ref(xr, xi, -1, inverse)
+    if scale != 1.0:
+        yr, yi = yr * scale, yi * scale
+    return yr, yi
+
+
+def fft_last_planar_c2c(xr, xi, inverse: bool = False, scale: float = 1.0):
+    """c2c DFT along the last axis of planar float32 arrays; the inverse
+    includes the 1/n scale, and ``scale`` multiplies either direction (the
+    3/2 rule folds its padsize³ factors in here).  Its envelope is
+    ``supported_c2c`` (the reference's 128-lane ``supported_c2c_last`` does
+    not carry over)."""
+    on_cpu = _check_float32(xr, xi)
+    _check_pair(xr, xi)
+    n = int(xr.shape[-1])
+    if not supported_c2c(n):
+        raise ValueError(f"fft_last_planar_c2c: n={n} outside the kernel "
+                         f"envelope")
+    if on_cpu:
+        return fft_last_planar_c2c_ref(xr, xi, inverse, scale)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    tw = _twiddles(n, n, 1 if inverse else -1, xr.device)
+    _launch("fft_last", "fft_last_launch", xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), tw.data_ptr(), xr.numel() // n, n,
+            int(inverse), float(scale), device=xr.device)
+    return yr, yi
+
+
+def cfft3d(x, inverse: bool = False):
+    """numpy-convention fftn (ifftn) over the last three axes of complex64
+    (…, N0, N1, N2): the last-axis c2c, then ``fft_axis`` on y and on x.
+    Leading axes batch."""
+    if x.ndim < 3:
+        raise ValueError("cfft3d needs (…, N0, N1, N2)")
+    yr, yi = fft_last_planar_c2c(x.real.contiguous(), x.imag.contiguous(),
+                                 inverse)
+    yr, yi = fft_axis_planar(yr, yi, axis=x.ndim - 2, inverse=inverse)
+    yr, yi = fft_axis_planar(yr, yi, axis=x.ndim - 3, inverse=inverse)
+    return torch.complex(yr, yi)
 
 
 # -- z + y stages ----------------------------------------------------------------

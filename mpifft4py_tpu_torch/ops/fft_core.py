@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fft", "ifft", "rfft", "irfft", "rfft2", "irfft2"]
+__all__ = ["fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2"]
 
 
 def fft(x, axis=-1):
@@ -28,6 +28,14 @@ def rfft(x, axis=-1):
 def irfft(x, axis=-1, n=None):
     nn = n if n is not None else 2 * (x.shape[axis % x.ndim] - 1)
     return torch.fft.irfft(x, n=nn, dim=axis)
+
+
+def fft2(x, axes=(-2, -1)):
+    return torch.fft.fft2(x, dim=axes)
+
+
+def ifft2(x, axes=(-2, -1)):
+    return torch.fft.ifft2(x, dim=axes)
 
 
 def rfft2(x, axes=(-2, -1)):

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Time and profile the PyTorch/CUDA port's NS3D RK4 step on one NVIDIA GPU,
-complex layout beside packed layout.
+its configurations side by side: ``complex`` and ``packed`` (the 2/3 rule in
+each spectral layout) and ``padded`` (the complex layout with the 3/2 rule).
 
     python3 profile_step.py [--n 256] [--steps 5]
 
-1. CUDA-event ms per step, ``--steps`` steps a sample, the layouts in turns
-   (complex, packed, packed, complex, complex, packed) after one warm-up
-   step each;
-2. ``torch.profiler`` over 3 steps of each layout: the kernel count, the
+1. CUDA-event ms per step, ``--steps`` steps a sample, the configurations
+   in turns (complex packed padded padded packed complex complex packed
+   padded) after one warm-up step each;
+2. ``torch.profiler`` over 3 steps of each configuration: the kernel count, the
    device busy time (union of the kernels' intervals), the idle share of
    the span from the first kernel's start to the last one's end, and the
    busy time per kernel group (each hand-written kernel, ``cat``,
    reductions, copies, other elementwise), then the largest other kernels.
 
-The Chrome traces go to ``build/profile_step/trace_<layout>.json``.
+The Chrome traces go to ``build/profile_step/trace_<config>.json``.
 Prints the card's name and power limit first; needs a CUDA device.
 """
 
@@ -27,11 +28,16 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-LAYOUTS = ("complex", "packed")
-ORDER = ("complex", "packed", "packed", "complex", "complex", "packed")
+CONFIGS = {  # name: (spectral_layout, dealias)
+    "complex": ("complex", "2/3-rule"),
+    "packed": ("packed", "2/3-rule"),
+    "padded": ("complex", "3/2-rule"),
+}
+ORDER = (*CONFIGS, *reversed(CONFIGS), *CONFIGS)
 HAND_WRITTEN = ("curl_ifft_x_kernel", "cross_rfft_z_kernel",
                 "fft_x_epilogue_kernel", "packed_irfft_kernel",
-                "packed_rfft_kernel", "fft_axis_kernel")
+                "packed_rfft_kernel", "fft_axis_kernel",
+                "planar_rfft_kernel", "planar_irfft_kernel", "fft_last_kernel")
 
 
 def group(name):
@@ -82,13 +88,14 @@ def main():
                          text=True, check=True).stdout.strip(), flush=True)
     FFT = R2C(np.array([args.n] * 3), np.array([2 * np.pi] * 3), None,
               "single", device="cuda")
-    sol = {lay: NavierStokes3D(FFT, nu=0.000625, dt=0.01,
-                               spectral_layout=lay) for lay in LAYOUTS}
-    state = {lay: s.step(s.taylor_green()) for lay, s in sol.items()}
+    sol = {c: NavierStokes3D(FFT, nu=0.000625, dt=0.01,
+                             spectral_layout=CONFIGS[c][0],
+                             dealias=CONFIGS[c][1]) for c in CONFIGS}
+    state = {c: s.step(s.taylor_green()) for c, s in sol.items()}
     torch.cuda.synchronize()
 
-    def event_ms(lay):
-        s, U = sol[lay], state[lay]
+    def event_ms(c):
+        s, U = sol[c], state[c]
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -98,17 +105,17 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(b) / args.steps
 
-    res = {lay: [] for lay in LAYOUTS}
-    for lay in ORDER:
-        res[lay].append(event_ms(lay))
+    res = {c: [] for c in CONFIGS}
+    for c in ORDER:
+        res[c].append(event_ms(c))
     print(f"NS3D {args.n}^3 RK4 event ms/step ({args.steps} steps a sample, "
-          f"in turns {' '.join(l[0] for l in ORDER)}): {json.dumps(res)}",
+          f"in turns {' '.join(ORDER)}): {json.dumps(res)}",
           flush=True)
 
     out = os.path.join(HERE, "build", "profile_step")
     os.makedirs(out, exist_ok=True)
-    for lay in LAYOUTS:
-        s, U = sol[lay], state[lay]
+    for c in CONFIGS:
+        s, U = sol[c], state[c]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -117,14 +124,14 @@ def main():
                 U = s.step(U)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        path = os.path.join(out, f"trace_{lay}.json")
+        path = os.path.join(out, f"trace_{c}.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             ks = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "kernel"]
         busy = busy_us(ks)
         span = max(e["ts"] + e["dur"] for e in ks) - min(e["ts"] for e in ks)
-        print(f"PROFILE {lay}: 3 steps, host wall {wall:.3f} ms, kernels "
+        print(f"PROFILE {c}: 3 steps, host wall {wall:.3f} ms, kernels "
               f"{len(ks)}, device busy {busy / 1e3:.3f} ms over a span of "
               f"{span / 1e3:.3f} ms, idle share of the span "
               f"{1 - busy / span:.4f}", flush=True)

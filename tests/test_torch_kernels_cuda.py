@@ -15,7 +15,7 @@ import torch
 
 from mpifft4py_tpu_torch.models.navier_stokes import NavierStokes3D
 from mpifft4py_tpu_torch.ops import fft3d as p3
-from mpifft4py_tpu_torch.slab import R2C
+from mpifft4py_tpu_torch.slab import C2C, R2C
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +163,91 @@ def test_wrapper_rejects_a_cpu_cuda_mix(cuda):
     x = _f32((4, 16, 8), cuda)
     with pytest.raises(ValueError):
         p3.fft_axis_planar(x, x.cpu(), 1)
+
+
+# planar r2c / c2r (rows 8-9): n = 384 has RB = 21 rows a block, so 7 and
+# 50 rows end in a partial block; nf = h + 1 (the Nyquist from plane 0)
+# against nf < h (truncated, column nf-1 doubled) and nf = h
+PLANAR = [((7, 384), None), ((50, 384), 129), ((2, 25, 384), 192),
+          ((33, 48), 17), ((65, 256), None), ((9, 1024), 300), ((4, 16), 5)]
+
+
+@pytest.mark.parametrize("shape,nf", PLANAR)
+def test_planar_rfft_matches_twin(cuda, shape, nf):
+    x = _f32(shape, cuda)
+    before = p3.LAUNCHES["planar_rfft_last"]
+    got = p3.rfft_last_planar(x, nf, 1 / 1.5 ** 3)
+    assert p3.LAUNCHES["planar_rfft_last"] == before + 1
+    _close(got, p3.rfft_last_planar_ref(x, nf, 1 / 1.5 ** 3))
+
+
+@pytest.mark.parametrize("shape,nf", PLANAR)
+def test_planar_irfft_matches_twin(cuda, shape, nf):
+    n = shape[-1]
+    w = n // 2 + 1 if nf is None else nf
+    xr = _f32(shape[:-1] + (w,), cuda, 1)
+    xi = _f32(shape[:-1] + (w,), cuda, 2)
+    before = p3.LAUNCHES["planar_irfft_last"]
+    got = p3.irfft_last_planar(xr, xi, n, nf, 1.5 ** 3)
+    assert p3.LAUNCHES["planar_irfft_last"] == before + 1
+    _close(got, p3.irfft_last_planar_ref(xr, xi, n, nf, 1.5 ** 3))
+
+
+# n = 384 has RB = 10 rows a block, so 7 and 2·129 rows end in a partial
+# block; the scale is the 3/2 rule's, folded into its z stage
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", [(7, 384), (33, 256), (5, 1024), (24, 16),
+                                   (3, 11, 48), (2, 129, 192), (2, 129, 384)])
+def test_fft_last_matches_twin(cuda, shape, inverse):
+    xr, xi = _f32(shape, cuda, 1), _f32(shape, cuda, 2)
+    sc = 1.5 ** 3 if inverse else 1 / 1.5 ** 3
+    before = p3.LAUNCHES["fft_last"]
+    got = p3.fft_last_planar_c2c(xr, xi, inverse)
+    assert p3.LAUNCHES["fft_last"] == before + 1
+    _close(got, p3.fft_last_planar_c2c_ref(xr, xi, inverse))
+    _close(p3.fft_last_planar_c2c(xr, xi, inverse, sc),
+           p3.fft_last_planar_c2c_ref(xr, xi, inverse, sc))
+
+
+def test_c2c_on_the_card_matches_float64(cuda):
+    N = (32, 48, 64)
+    C = C2C(np.array(N), np.array([2 * np.pi] * 3), None, "single",
+            device=cuda)
+    u = torch.complex(_f32(N, cuda, 1), _f32(N, cuda, 2))
+    fu = C.fftn(u)
+    _close(fu.to(torch.complex128), torch.fft.fftn(u.to(torch.complex128)))
+    for dealias in (None, "3/2-rule"):
+        back = C.fftn(C.ifftn(fu, dealias=dealias), dealias=dealias)
+        torch.cuda.synchronize()
+        assert float((back - fu).abs().max()) < 1e-6 * float(fu.abs().max())
+    # the 3/2 rule's kernel chain against its torch.fft route (at N, M =
+    # 48·72·96 is outside the kernels' envelope)
+    C = C2C(np.array((32, 32, 64)), np.array([2 * np.pi] * 3), None,
+            "single", device=cuda)
+    assert C._kernel_ok("3/2-rule")
+    up = torch.complex(*(_f32((3,) + C.work_shape("3/2-rule"), cuda, s)
+                         for s in (3, 4)))
+    before = p3.LAUNCHES["fft_last"]
+    fu = C.forward_fn("3/2-rule")(up)
+    _close(fu, C._fwd_torch(up, "3/2-rule"))
+    _close(C.backward_fn("3/2-rule")(fu), C._bwd_torch(fu, "3/2-rule"))
+    assert p3.LAUNCHES["fft_last"] == before + 2
+
+
+def test_padded_r2c_on_the_card_matches_torch_route(cuda):
+    N = (32, 32, 64)
+    FFT = R2C(np.array(N), np.array([2 * np.pi] * 3), None, "single",
+              device=cuda)
+    assert FFT._padded_kernel_ok()
+    up = _f32((3,) + FFT.work_shape("3/2-rule"), cuda)
+    before = dict(p3.LAUNCHES)
+    fu = FFT.forward_fields_fn("3/2-rule")(up)
+    _close(fu, FFT._fwd_torch(up, "3/2-rule"))
+    _close(FFT.backward_fields_fn("3/2-rule")(fu),
+           FFT._bwd_torch(fu, "3/2-rule"))
+    for k in ("planar_rfft_last", "planar_irfft_last", "fft_axis"):
+        assert p3.LAUNCHES[k] > before[k]
+    fu = FFT.fftn(_f32(N, cuda, 3))                    # a Hermitian spectrum
+    back = FFT.fftn(FFT.ifftn(fu, dealias="3/2-rule"), dealias="3/2-rule")
+    torch.cuda.synchronize()
+    assert float((back - fu).abs().max()) < 1e-6 * float(fu.abs().max())

@@ -105,11 +105,8 @@ def test_unported_options_raise():
     N, L = np.array([16] * 3), np.array([TAU] * 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tslab.R2C(N, L, 2, "single", device="cpu")
-    T = tslab.R2C(N, L, None, "single", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward_fn("3/2-rule")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tslab.C2C(N, L, None, "single", device="cpu")
+        tslab.C2C(N, L, 4, "single", device="cpu")
     with pytest.raises(ValueError):
         tslab.R2C(np.array([16, 16, 15]), L, None, "single", device="cpu")
 
