@@ -22,16 +22,26 @@ Phases, each checked; any failed check makes the exit code non-zero:
    step and peak memory beside the complex layout's;
 6. padded solver: the same 5 steps with ``dealias="3/2-rule"`` (the
    nonlinear term on the 384³ grid), against the same run in "double",
-   beside the 2/3-rule complex step.
+   beside the 2/3-rule complex step;
+7. the solver family: ``VorticityVelocity3D``, ``MHD3D`` and
+   ``Boussinesq3D`` at 256³, RK4 with the 2/3 rule, 5 steps in each layout,
+   each float32 state against the same model's float64 complex run, VV
+   against the curl of phase 4's NS3D states, MHD's ∇·b at round-off, with
+   ms per step, peak step memory and each kernel's launches per step, and
+   each packed step's launches of its right-hand side's kernels checked
+   against 4 × the count of one right-hand side.
 
 Phase 3 also runs the 3/2-rule transforms at 256³ (the padded round trip,
 the forward of a product field against a float64 alias-sum oracle) and
 ``slab.C2C`` (forward against float64 ``torch.fft.fftn``, round trip, and
 the 3/2-rule round trip and forward, the latter against float64 ``fftn``
 on the 384³ grid truncated to 256³).
-Phases 3–6 are the main path: each runs with the kernels' launch counters
-set to 0 just before it and read just after, and phases 4–6 also read them
-around each of their steps.  Each kernel's time is its median beside its
+Phases 3–7 are the main path: each runs with the kernels' launch counters
+set to 0 just before it and read just after, and phases 4–7 also read them
+around each of their steps.  Phase 2 also holds each template variant of
+the fused kernels (Biot–Savart curl, cross2 and mul products, the curl,
+div and buoyancy epilogues) against its twin at the 256³ shapes of the
+solvers' right-hand sides.  Each kernel's time is its median beside its
 plain twin's and, where one exists, one ``torch.fft`` call's computing the
 same function, with the bound of its bytes at 3.35 TB/s and of its FFT
 flops (5 n log2 n a complex transform, half that a real one) at 67 TFLOP/s
@@ -60,10 +70,25 @@ KERNELS = {
     "packed_rfft_last": (f"{CSRC}/packed_rfft.cu", f"{PALLAS}:636 (row 4)"),
     "packed_irfft_last": (f"{CSRC}/packed_rfft.cu", f"{PALLAS}:849 (row 5)"),
     "curl_ifft_x": (f"{CSRC}/curl_ifft_x.cu", f"{PALLAS}:1378 (row 11)"),
+    "curl_ifft_x_biot_savart": (f"{CSRC}/curl_ifft_x.cu",
+                                f"{PALLAS}:1378 (row 11, biot_savart)"),
     "cross_rfft_z": (f"{CSRC}/cross_rfft_z.cu",
-                     f"{PALLAS}:1805 (row 12); {PALLAS}:1755 (row 13)"),
+                     f"{PALLAS}:1805 (row 12); {PALLAS}:1755 (row 13); "
+                     f"{PALLAS}:2141 (row 16)"),
+    "cross2_rfft_z": (f"{CSRC}/cross_rfft_z.cu",
+                      f"{PALLAS}:1805 (row 12, cross2); {PALLAS}:2141 "
+                      f"(row 16, cross2)"),
+    "mul_rfft_z": (f"{CSRC}/cross_rfft_z.cu",
+                   f"{PALLAS}:2033 (row 15); {PALLAS}:1755 (row 13, mul); "
+                   f"{PALLAS}:2141 (row 16, mul)"),
     "fft_x_epilogue": (f"{CSRC}/fft_x_epilogue.cu",
                        f"{PALLAS}:1981 (row 14)"),
+    "fft_x_epilogue_buoy": (f"{CSRC}/fft_x_epilogue.cu",
+                            f"{PALLAS}:1981 (row 14, buoy)"),
+    "fft_x_epilogue_curl": (f"{CSRC}/fft_x_epilogue.cu",
+                            f"{PALLAS}:1981 (row 14, mode curl)"),
+    "fft_x_epilogue_div": (f"{CSRC}/fft_x_epilogue.cu",
+                           f"{PALLAS}:1981 (row 14, mode div)"),
     "planar_rfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:439 (row 8)"),
     "planar_irfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:477 (row 9)"),
     "fft_last": (f"{CSRC}/fft_last.cu", f"{PALLAS}:531 (row 10)"),
@@ -73,6 +98,19 @@ TRANSFORM_KERNELS = ("fft_axis", "packed_rfft_last", "packed_irfft_last")
 PADDED_KERNELS = ("fft_axis", "planar_rfft_last", "planar_irfft_last")
 PACKED_STEP_KERNELS = ("curl_ifft_x", "cross_rfft_z", "fft_x_epilogue",
                        "fft_axis", "packed_irfft_last")
+# each model's packed right-hand side: its hand-written launches (RK4 runs
+# four right-hand sides a step)
+FAMILY_RHS = {
+    "VV": {"curl_ifft_x_biot_savart": 1, "fft_axis": 2,
+           "packed_irfft_last": 1, "cross_rfft_z": 1,
+           "fft_x_epilogue_curl": 1},
+    "MHD": {"curl_ifft_x": 2, "fft_axis": 4, "packed_irfft_last": 2,
+            "cross2_rfft_z": 1, "cross_rfft_z": 1, "fft_x_epilogue": 1,
+            "fft_x_epilogue_curl": 1},
+    "Boussinesq": {"curl_ifft_x": 1, "fft_axis": 5, "packed_irfft_last": 2,
+                   "cross_rfft_z": 1, "mul_rfft_z": 1,
+                   "fft_x_epilogue_buoy": 1, "fft_x_epilogue_div": 1},
+}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
 P3 = 1.5 ** 3                 # padsize³ of the 3/2 rule
@@ -199,8 +237,54 @@ def kernel_phase(torch, p3, rng):
     del a5, b5
     epi = (lambda: p3.fft_x_epilogue_packed(ur, ui, sr, si, *km, "project",
                                             NU))
-    epi_ref = (lambda: p3.fft_x_epilogue_packed_ref(ur, ui, sr, si, *km, NU))
+    epi_ref = (lambda: p3.fft_x_epilogue_packed_ref(ur, ui, sr, si, *km,
+                                                    "project", NU))
     compare("fft_x_epilogue", "256^3 project", tuple(epi()), tuple(epi_ref()))
+
+    # the solver family's variants at the same shapes: the Biot-Savart curl
+    # (VV), cross2 (MHD), mul (Boussinesq, also at 512-class planes, row
+    # 13's function), the curl and div epilogues and the buoyancy rider
+    for ws in (False, True):
+        compare("curl_ifft_x_biot_savart", f"256^3 with_state={ws}",
+                p3.curl_ifft_x(ur, ui, *km[:3], ws, True),
+                p3.curl_ifft_x_ref(ur, ui, *km[:3], ws, True))
+    compare("curl_ifft_x_biot_savart",
+            "curl_irfft3d_packed biot_savart 256^3 with_state",
+            p3.curl_irfft3d_packed(ur, ui, *km[:3], (256,) * 3,
+                                   biot_savart=True, with_state=True),
+            p3.curl_irfft3d_packed_ref(ur, ui, *km[:3], (256,) * 3,
+                                       biot_savart=True, with_state=True))
+    c3, d3 = cu((3, 256, 256, 256)), cu((3, 256, 256, 256))
+    compare("cross2_rfft_z", "256^3", p3.cross_rfft_z(a, b, c3, d3),
+            p3.cross_rfft_z_ref(a, b, c3, d3))
+    compare("cross2_rfft_z", "cross_rfft_zy_packed cross2 256^3",
+            p3.cross_rfft_zy_packed(a, b, c3, d3),
+            p3.cross_rfft_zy_packed_ref(a, b, c3, d3))
+    t1 = cu((1, 256, 256, 256))
+    compare("mul_rfft_z", "256^3", p3.mul_rfft_z(a, t1),
+            p3.mul_rfft_z_ref(a, t1))
+    compare("mul_rfft_z", "mul_rfft_zy_packed 256^3",
+            p3.mul_rfft_zy_packed(a, t1), p3.mul_rfft_zy_packed_ref(a, t1))
+    a5, t5 = cu((3, 4, 512, 512)), cu((1, 4, 512, 512))
+    compare("mul_rfft_z", "mul_rfft_zy_packed 512-class planes "
+            "(3, 4, 512, 512), row 13's function",
+            p3.mul_rfft_zy_packed(a5, t5), p3.mul_rfft_zy_packed_ref(a5, t5))
+    del a5, t5
+    s1r, s1i = cu((1, 256, 256, 128)), cu((1, 256, 256, 128))
+    variants = {  # name: (state pair, mode, buoy)
+        "fft_x_epilogue_curl": ((sr, si), "curl", None),
+        "fft_x_epilogue_div": ((s1r, s1i), "div", None),
+        "fft_x_epilogue_buoy": ((sr, si), "project", (s1r, s1i, 0.7)),
+    }
+    epis = {}
+    for name, (st, mode, buoy) in variants.items():
+        epis[name] = (
+            lambda st=st, mode=mode, buoy=buoy: p3.fft_x_epilogue_packed(
+                ur, ui, *st, *km, mode, NU, buoy=buoy),
+            lambda st=st, mode=mode, buoy=buoy: p3.fft_x_epilogue_packed_ref(
+                ur, ui, *st, *km, mode, NU, buoy=buoy))
+        compare(name, f"256^3 {mode}{' + buoy' if buoy else ''}",
+                tuple(epis[name][0]()), tuple(epis[name][1]()))
 
     # the 3/2 rule's kernels at the 256^3 padded pipeline's shapes (a
     # 3-stack on the 384^3 grid, Nf = 129), and the C2C chain's last axis
@@ -259,6 +343,25 @@ def kernel_phase(torch, p3, rng):
                          nbytes(a, b, ur, ui), fft_flops(3 * n3, 256, True)),
         "fft_x_epilogue": (epi, epi_ref, None, 6 * nbytes(ur),
                            fft_flops(pk3, 256)),
+        "curl_ifft_x_biot_savart": (
+            lambda: p3.curl_ifft_x(ur, ui, *km[:3], True, True),
+            lambda: p3.curl_ifft_x_ref(ur, ui, *km[:3], True, True), None,
+            3 * nbytes(ur, ui), fft_flops(2 * pk3, 256)),
+        "cross2_rfft_z": (lambda: p3.cross_rfft_z(a, b, c3, d3),
+                          lambda: p3.cross_rfft_z_ref(a, b, c3, d3), None,
+                          nbytes(a, b, c3, d3, ur, ui),
+                          fft_flops(3 * n3, 256, True)),
+        "mul_rfft_z": (lambda: p3.mul_rfft_z(a, t1),
+                       lambda: p3.mul_rfft_z_ref(a, t1), None,
+                       nbytes(a, t1, ur, ui), fft_flops(3 * n3, 256, True)),
+        "fft_x_epilogue_curl": (*epis["fft_x_epilogue_curl"], None,
+                                6 * nbytes(ur), fft_flops(pk3, 256)),
+        "fft_x_epilogue_div": (*epis["fft_x_epilogue_div"], None,
+                               2 * nbytes(ur) + 4 * nbytes(s1r),
+                               fft_flops(pk3, 256)),
+        "fft_x_epilogue_buoy": (*epis["fft_x_epilogue_buoy"], None,
+                                6 * nbytes(ur) + 2 * nbytes(s1r),
+                                fft_flops(pk3, 256)),
         "fft_axis": (lambda: p3.fft_axis_planar(xr, xi, 0),
                      lambda: p3.fft_axis_planar_ref(xr, xi, 0),
                      lambda: torch.fft.fft(z, dim=0), 4 * nbytes(xr),
@@ -445,14 +548,19 @@ def make_solver(R2C, NavierStokes3D, precision, layout="complex",
                           integrator="RK4", spectral_layout=layout)
 
 
-def run_steps(torch, p3, s, label):
-    """5 RK4 steps from Taylor–Green with the energy after each, then the
-    same 5 steps timed (host clock, synchronised) with the peak device
-    memory above what was resident before them.  Returns the state, the
-    energies, ms per step, the peak bytes and the launches of the steps."""
-    U0 = s.taylor_green()
-    e = [s.energy(U0)]
-    check(abs(e[0] - 0.125) < 1e-6, f"{label} energy at t=0: {e[0]!r}")
+def run_steps(torch, p3, s, label, init=None, energy=None, e0=0.125,
+              decreasing=True):
+    """5 RK4 steps from ``init()`` (Taylor–Green) with the ``energy`` after
+    each (held to ``e0`` at t=0, and to decrease strictly when
+    ``decreasing``), then the same 5 steps timed (host clock,
+    synchronised) with the peak device memory above what was resident
+    before them.  Returns the state, the energies, ms per step, the peak
+    bytes and the launches of the steps."""
+    init, energy = init or s.taylor_green, energy or s.energy
+    U0 = init()
+    e = [energy(U0)]
+    check(abs(e[0] - e0) < 1e-6, f"{label} energy at t=0: {e[0]!r} "
+                                 f"(expected {e0!r})")
     steps = dict.fromkeys(p3.LAUNCHES, 0)
     U = U0
     for _ in range(5):
@@ -460,10 +568,12 @@ def run_steps(torch, p3, s, label):
         U = s.step(U)
         for k in steps:
             steps[k] += p3.LAUNCHES[k] - before[k]
-        e.append(s.energy(U))
+        e.append(energy(U))
     print(f"{label} RK4 energies: {e}", flush=True)
-    check(all(np.isfinite(e)) and all(a > b for a, b in zip(e, e[1:])),
-          f"{label} energies finite and strictly decreasing over 5 steps")
+    check(all(np.isfinite(e)) and (not decreasing or all(
+        a > b for a, b in zip(e, e[1:]))),
+          f"{label} energies finite"
+          f"{' and strictly decreasing' if decreasing else ''} over 5 steps")
     V = U0                                    # the same 5 steps, timed
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
@@ -549,6 +659,88 @@ def padded_solver_phase(torch, p3, R2C, NavierStokes3D, ms_c, peak_c):
           f"{peak_c / 2**30:.3f} GiB", flush=True)
 
 
+def family_solver(models, name, precision, layout):
+    """The model ``name`` at 256³, RK4, 2/3 rule; with its initial state,
+    its total-energy function, that energy at t = 0 and whether it must
+    decrease."""
+    FFT = models["R2C"](np.array([256] * 3), np.array([TAU] * 3), None,
+                        precision, device="cuda")
+    kw = dict(dt=DT, dealias="2/3-rule", integrator="RK4",
+              spectral_layout=layout)
+    if name == "VV":
+        s = models[name](FFT, nu=NU, **kw)
+        return s, s.taylor_green, s.energy, 0.125, True
+    if name == "MHD":
+        s = models[name](FFT, nu=NU, eta=NU, **kw)
+        return (s, s.taylor_green_mhd, lambda S: sum(s.energies(S)),
+                0.125 + 0.00375, True)
+    # the buoyancy trades kinetic and potential energy: no monotone total
+    s = models[name](FFT, nu=NU, kappa=NU, **kw)
+    return (s, s.taylor_green_stratified, lambda S: sum(s.energies(S)),
+            0.125 + 0.0025, False)
+
+
+def family_phase(torch, p3, models, Uc, Ud):
+    """VV, MHD and Boussinesq at 256³: 5 RK4 steps in each layout against
+    the model's float64 complex run, VV against the curl of NS3D's states
+    (``Uc`` float32, ``Ud`` float64, phase 4), MHD's ∇·b, and each packed
+    right-hand side's launches."""
+    for name in FAMILY_RHS:
+        d, init, *_ = family_solver(models, name, "double", "complex")
+        W = init()
+        for _ in range(5):
+            W = d.step(W)
+        if name == "VV":
+            err = rel_l2(torch, W, d.from_velocity(Ud))
+            check(err <= 1e-10, f"VV 256^3 float64 vs the curl of NS3D's "
+                                f"float64 state after 5 steps: rel L2 err "
+                                f"{err:.3e}")
+        times = {}
+        for layout in ("complex", "packed"):
+            s, init, energy, e0, dec = family_solver(models, name, "single",
+                                                     layout)
+            label = f"{name} {layout} 256^3"
+            S, _, ms, peak, steps = run_steps(torch, p3, s, label, init,
+                                              energy, e0, dec)
+            times[layout] = (ms, peak)
+            print(f"{label} launches per step: "
+                  f"{ {k: n / 5 for k, n in steps.items() if n} }",
+                  flush=True)
+            if layout == "packed":
+                for k, n in steps.items():
+                    want = 4 * 5 * FAMILY_RHS[name].get(k, 0)
+                    check(n == want, f"{label} launched {k} {n} times in 5 "
+                                     f"RK4 steps (4 x 5 x its count in one "
+                                     f"right-hand side: {want})")
+            else:
+                for k in TRANSFORM_KERNELS:
+                    check(steps[k] > 0, f"{label} steps launched {k}: "
+                                        f"{steps[k]}")
+            Sc = s.from_packed(S) if layout == "packed" else S
+            err = rel_l2(torch, Sc, W)
+            check(err <= 1e-5, f"{label} vs the float64 complex run after 5 "
+                               f"steps: rel L2 err {err:.3e}")
+            if name == "VV":
+                err = rel_l2(torch, Sc, s.from_velocity(Uc))
+                check(err <= 1e-5, f"{label} vs the curl of NS3D's float32 "
+                                   f"state after 5 steps: rel L2 err "
+                                   f"{err:.3e}")
+            if name == "MHD":
+                b = S[:, 3:] if layout == "packed" else S[3:]
+                kmax = max(float(k.abs().max()) for k in s._step_args()[:3])
+                rel = s.divergences(S)[1] / (kmax * float(b.abs().max()))
+                check(rel <= 1e-6, f"{label} max |K.b| / (max |K| max |b|) "
+                                   f"after 5 steps: {rel:.3e}")
+            del S, Sc
+        print(f"time {name} 256^3 RK4 2/3-rule single: packed "
+              f"{times['packed'][0]:.3f} ms/step, complex "
+              f"{times['complex'][0]:.3f} ms/step (host clock over 5 steps, "
+              f"synchronised); peak step memory above the resident: packed "
+              f"{times['packed'][1] / 2**30:.3f} GiB, complex "
+              f"{times['complex'][1] / 2**30:.3f} GiB", flush=True)
+        del d, W
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -557,7 +749,9 @@ def main():
     sys.path.insert(0, HERE)
     from mpifft4py_tpu_torch.ops import _build, fft3d as p3
     from mpifft4py_tpu_torch.slab import C2C, R2C
-    from mpifft4py_tpu_torch.models.navier_stokes import NavierStokes3D
+    from mpifft4py_tpu_torch.models import (Boussinesq3D, MHD3D,
+                                            NavierStokes3D,
+                                            VorticityVelocity3D)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -597,8 +791,11 @@ def main():
     Uc, Ud, ms_c, peak_c = path(solver_phase, torch, p3, R2C, NavierStokes3D)
     path(packed_solver_phase, torch, p3, R2C, NavierStokes3D, Uc, Ud, ms_c,
          peak_c)
-    del Uc, Ud
     path(padded_solver_phase, torch, p3, R2C, NavierStokes3D, ms_c, peak_c)
+    path(family_phase, torch, p3, {"R2C": R2C, "VV": VorticityVelocity3D,
+                                   "MHD": MHD3D, "Boussinesq": Boussinesq3D},
+         Uc, Ud)
+    del Uc, Ud
     for k, n in launches.items():
         check(n > 0, f"main path launched {k} {n} times")
 

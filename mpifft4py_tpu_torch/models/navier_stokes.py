@@ -1,8 +1,9 @@
 """Pseudo-spectral incompressible 3D Navier–Stokes DNS.
 
-Port of ``mpifft4py_tpu/models/navier_stokes.py`` (``SpectralSolver`` and
-``NavierStokes3D``) in both spectral layouts.  Rotational form, velocity in
-spectral space:
+Port of ``mpifft4py_tpu/models/navier_stokes.py`` (``SpectralSolver``, the
+machinery the solver family shares — NS3D here, VV, MHD and Boussinesq in
+their own modules — and ``NavierStokes3D``) in both spectral layouts.
+Rotational form, velocity in spectral space:
 
     dU_hat/dt = P[ F̂(U × ω) ] − ν k² U_hat,   ω = ifftn(i K × U_hat),
     P(F̂) = F̂ − K (K·F̂)/|K|²                   (Leray projection).
@@ -21,9 +22,13 @@ device, and ``run`` is a Python loop.
   complex boundary anywhere.  The right-hand side runs through the fused
   kernels of ``ops.fft3d``: the curl with the state's x inverse, the cross
   product with the z/y forwards, and the x forward with the mask, the
-  projection and the viscous term (``rhs_packed``).  The reference's
-  streamed nonlinear term and fold integrators, which fit 512³–768³ on a
-  16 GB chip, are not ported (ROADMAP.md queue 1 item 5).
+  projection and the viscous term (``rhs_packed``, over the helpers
+  ``_bwd_state_curl_pk`` and ``_nl_fwd_epilogue_pk`` that the family
+  shares).  The reference's unfused branches (taken only when a TPU memory
+  gate fails; the port's gates are shape predicates its packed envelope
+  always passes), its streamed nonlinear term and its fold integrators,
+  which fit 512³–768³ on a 16 GB chip, are not ported (ROADMAP.md queue 1
+  item 5).
 """
 
 from __future__ import annotations
@@ -57,8 +62,10 @@ INTEGRATORS = ("RK4", "LSRK54", "Euler", "AB2")
 
 class SpectralSolver:
     """Shared machinery of the spectral solvers: integrators, factored
-    wavenumbers, the AB2 carry and ``run``.  Subclasses implement
-    ``rhs(state, k0, k1, k2)``."""
+    wavenumbers, the AB2 carry, ``run`` and the packed layout's fused
+    right-hand-side helpers.  Subclasses implement ``rhs(state, k0, k1,
+    k2)`` and, for the packed layout, ``rhs_packed(Sr, Si, k0, k1, k2, m0,
+    m1, m2)``."""
 
     def _init_solver(self, FFT, dt, dealias, integrator,
                      spectral_layout: str = "complex"):
@@ -74,6 +81,10 @@ class SpectralSolver:
         self.integrator = integrator
         if spectral_layout == "packed":
             self._validate_packed()
+            # the packed transforms (the 2/3-rule forward purifies and
+            # masks; the state is always masked, so the inverse does not)
+            self._fwd_pk = FFT.forward_packed_fn(dealias)
+            self._bwd_pk = FFT.backward_packed_fn()
         self.spectral_layout = spectral_layout
         # stacks of fields ride one call per transform
         self._fwd = FFT.forward_fields_fn(dealias=dealias)
@@ -92,12 +103,19 @@ class SpectralSolver:
             FFT.N, FFT.L, FFT.global_complex_shape()[2], FFT.float,
             FFT.device)
 
-    def _step_args(self):
+    def _complex_k_args(self):
+        """(k0, k1, k2) of the complex layout, whatever the solver's own
+        layout (diagnostics and state conversions take them)."""
         if not hasattr(self, "_k_args"):
-            self._k_args = (self._packed_arrays()
-                            if self.spectral_layout == "packed"
-                            else self._factored_k())
+            self._k_args = self._factored_k()
         return self._k_args
+
+    def _step_args(self):
+        if self.spectral_layout != "packed":
+            return self._complex_k_args()
+        if not hasattr(self, "_pk_args"):
+            self._pk_args = self._packed_arrays()
+        return self._pk_args
 
     # -- packed spectral layout plumbing -------------------------------------------
 
@@ -149,14 +167,56 @@ class SpectralSolver:
             return 0.5 * e / (ntot * ntot)
         return comp_e
 
-    def _packed_energy(self, U) -> torch.Tensor:
+    def _packed_component_energies(self, S) -> torch.Tensor:
+        """Per-component Parseval energies (C,) of a packed state."""
         if not hasattr(self, "_comp_e"):
             self._comp_e = self._parseval_component_energies()
-        return torch.sum(self._comp_e(U[0], U[1]))
+        return self._comp_e(S[0], S[1])
+
+    def _packed_energy(self, U) -> torch.Tensor:
+        return torch.sum(self._packed_component_energies(U))
 
     def energy_packed(self, U) -> float:
         """Parseval total energy 0.5<Σ_c |u_c|²> of a packed state."""
         return float(self._packed_energy(U))
+
+    # -- the packed right-hand sides' fused helpers ----------------------------------
+
+    def _bwd_state_curl_pk(self, Vr, Vi, k0, k1, k2,
+                           biot_savart: bool = False):
+        """(ifft(V̂), ifft(i K × V̂ [/|K|²])) of a packed 3-stack: one pass of
+        the curl kernel over the state pair inverts both (the kernel's
+        order is curl first).  Views of one (6, N0, N1, N2) tensor."""
+        W, V = p3.curl_irfft3d_packed(Vr, Vi, k0, k1, k2,
+                                      self.FFT.global_real_shape(),
+                                      biot_savart=biot_savart,
+                                      with_state=True)
+        return V, W
+
+    def _nl_fwd_epilogue_pk(self, A, B, Sr, Si, kargs, mode, visc,
+                            C=None, D=None, buoy=None, out=None):
+        """purify(epilogue(mask·fft(A × B [+ C × D]) [+ Ri·θ̂ ê_z])) −
+        visc·k²·S for physical 3-stacks A, B [, C, D] and the packed state
+        (Sr, Si): the product rides the z/y forward kernels, the x forward
+        the epilogue kernel (``mode`` "project" or "curl"; ``buoy`` =
+        (θr, θi, Ri)).  Returns a (2, 3, N0, N1, h) tensor, or fills
+        ``out``."""
+        Fzr, Fzi = p3.cross_rfft_zy_packed(A, B, C, D)
+        d = p3.fft_x_epilogue_packed(Fzr, Fzi, Sr, Si, *kargs, mode, visc,
+                                     buoy=buoy, out=out)
+        p3.purify_plane0_dus(d[0], d[1])
+        return d
+
+    def _nl_mul_epilogue_pk(self, A, t, Sr, Si, kargs, visc, out=None):
+        """The scalar-flux mirror of ``_nl_fwd_epilogue_pk``:
+        purify(−i K·mask·fft(A·t)) − visc·k²·S for a physical 3-stack A,
+        a (1, N0, N1, N2) field t and a (1, N0, N1, h) state.  Returns a
+        (2, 1, N0, N1, h) tensor, or fills ``out``."""
+        Gzr, Gzi = p3.mul_rfft_zy_packed(A, t)
+        d = p3.fft_x_epilogue_packed(Gzr, Gzi, Sr, Si, *kargs, "div", visc,
+                                     out=out)
+        p3.purify_plane0_dus(d[0], d[1])
+        return d
 
     def _rhs_state(self, V, *kargs):
         """The right-hand side of a state in this solver's layout."""
@@ -338,15 +398,11 @@ class NavierStokes3D(SpectralSolver):
         the state pair; the cross kernel forms U × ω under the z/y
         forwards; the epilogue kernel runs the x forward, the mask, the
         projection and −ν k² Û; the plane-0 purify is a column update."""
-        W, U = p3.curl_irfft3d_packed(Ur, Ui, k0, k1, k2,
-                                      self.FFT.global_real_shape(),
-                                      with_state=True)
-        Fzr, Fzi = p3.cross_rfft_zy_packed(U, W)
+        U, W = self._bwd_state_curl_pk(Ur, Ui, k0, k1, k2)
+        dU = self._nl_fwd_epilogue_pk(U, W, Ur, Ui,
+                                      (k0, k1, k2, m0, m1, m2), "project",
+                                      self.nu)
         del U, W
-        dU = p3.fft_x_epilogue_packed(Fzr, Fzi, Ur, Ui, k0, k1, k2,
-                                      m0, m1, m2, "project", self.nu)
-        del Fzr, Fzi
-        p3.purify_plane0_dus(dU[0], dU[1])
         if self.forcing_band is not None and self.forcing_rate > 0:
             klo, khi = self.forcing_band
             ksq = spectral.ksq(k0, k1, k2)

@@ -40,13 +40,15 @@ _SIGNATURES = {
     "packed_rfft_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
     # xr, xi, y, tw_h, tw_n, rows, n, stream
     "packed_irfft_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
-    # ur, ui, k0, k1, k2, yr, yi, tw, n, n1, h, with_state, stream
-    "curl_ifft_x_launch": (_P,) * 8 + (_I, _I, _I, _I, _P),
-    # a, b, yr, yi, tw_h, tw_n, rows, n, stream
-    "cross_rfft_z_launch": (_P,) * 6 + (_L, _I, _P),
-    # fr, fi, sr, si, k0, k1, k2, m0, m1, m2, yr, yi, tw, n, n1, h, visc,
+    # ur, ui, k0, k1, k2, yr, yi, tw, n, n1, h, with_state, biot_savart,
     # stream
-    "fft_x_epilogue_launch": (_P,) * 13 + (_I, _I, _I, ctypes.c_float, _P),
+    "curl_ifft_x_launch": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # a, b, c, d, yr, yi, tw_h, tw_n, rows, n, op, stream
+    "cross_rfft_z_launch": (_P,) * 8 + (_L, _I, _I, _P),
+    # fr, fi, sr, si, tr, ti, k0, k1, k2, m0, m1, m2, yr, yi, tw, n, n1, h,
+    # visc, mode, ri, stream
+    "fft_x_epilogue_launch": (_P,) * 15 + (_I, _I, _I, ctypes.c_float, _I,
+                                          ctypes.c_float, _P),
     # x, yr, yi, tw_h, tw_n, rows, n, nf, dbl, scale, stream
     "planar_rfft_launch": (_P,) * 5 + (_L, _I, _I, _I, ctypes.c_float, _P),
     # xr, xi, y, tw_h, tw_n, rows, n, nf_in, scale, stream

@@ -6,6 +6,9 @@
 // so the curl never lands in device memory.  Planar form of the curl:
 //   re(iK x U)_c = -(K_{c+1} Ui_{c+2} - K_{c+2} Ui_{c+1}),
 //   im(iK x U)_c =   K_{c+1} Ur_{c+2} - K_{c+2} Ur_{c+1}.
+// With BS (biot_savart, the vorticity form's velocity from its state) the
+// curl takes the factor 1/|k|^2 (k^2 = 0 taken as 1) as it is formed
+// (pallas_fft3d.py:1270-1274); the state's own inverse does not.
 //
 // The state pair is (3, n, Q) with Q = N1 * h flattened (k1, k2) columns;
 // the wavenumbers arrive as the 1-D vectors k0 (n), k1 (N1), k2 (h).  Like
@@ -30,6 +33,7 @@ using fftblock::Plan;
 
 namespace {
 
+template <bool BS>
 __global__ void __launch_bounds__(1024)
 curl_ifft_x_kernel(const float* __restrict__ ur, const float* __restrict__ ui,
                    const float* __restrict__ k0, const float* __restrict__ k1,
@@ -60,6 +64,11 @@ curl_ifft_x_kernel(const float* __restrict__ ur, const float* __restrict__ ui,
           const long long g2 = ((c + 2) % 3) * plane + g;
           v = make_float2(-(Ka * ui[g2] - Kb * ui[g1]),
                           Ka * ur[g2] - Kb * ur[g1]);
+          if (BS) {
+            const float ksq = kx * kx + ky * ky + kz * kz;
+            const float kinv = 1.f / (ksq == 0.f ? 1.f : ksq);
+            v = make_float2(v.x * kinv, v.y * kinv);
+          }
         } else {
           v = make_float2(ur[c * plane + g], ui[c * plane + g]);
         }
@@ -84,32 +93,48 @@ curl_ifft_x_kernel(const float* __restrict__ ur, const float* __restrict__ ui,
   }
 }
 
-}  // namespace
-
-// ur, ui: (3, n, n1 * h) state pair; k0 (n), k1 (n1), k2 (h) float32;
-// yr, yi: (3 or 6, n, n1 * h), the curl's x inverse first, then (with_state)
-// the state's.  tw: n float2 of exp(+2 pi i m / n).  Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int curl_ifft_x_launch(const float* ur, const float* ui,
-                                  const float* k0, const float* k1,
-                                  const float* k2, float* yr, float* yi,
-                                  const void* tw, int n, int n1, int h,
-                                  int with_state, void* stream) {
-  const Plan plan = fftblock::make_plan(n);
-  const long long Q = static_cast<long long>(n1) * h;
-  if (plan.nst == 0 || n > 1024 || n1 < 1 || h < 1 || Q > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <bool BS>
+int launch(const float* ur, const float* ui, const float* k0,
+           const float* k1, const float* k2, float* yr, float* yi,
+           const void* tw, const Plan& plan, int n, int h, long long Q,
+           int passes, cudaStream_t stream) {
   const int T = fftblock::stack3_cols(n);
   const long long blocks = (Q + T - 1) / T;
   const size_t smem = static_cast<size_t>(n) * 3 * T * sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(
-      curl_ifft_x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      curl_ifft_x_kernel<BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = fftblock::threads_for(n * 3 * T);
-  curl_ifft_x_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      ur, ui, k0, k1, k2, yr, yi, static_cast<const float2*>(tw), plan, n, h,
-      static_cast<int>(Q), T, with_state ? 2 : 1);
+  curl_ifft_x_kernel<BS>
+      <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+          ur, ui, k0, k1, k2, yr, yi, static_cast<const float2*>(tw), plan,
+          n, h, static_cast<int>(Q), T, passes);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ur, ui: (3, n, n1 * h) state pair; k0 (n), k1 (n1), k2 (h) float32;
+// yr, yi: (3 or 6, n, n1 * h), the curl's x inverse first (divided by
+// |k|^2 with biot_savart), then (with_state) the state's.  tw: n float2 of
+// exp(+2 pi i m / n).  Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int curl_ifft_x_launch(const float* ur, const float* ui,
+                                  const float* k0, const float* k1,
+                                  const float* k2, float* yr, float* yi,
+                                  const void* tw, int n, int n1, int h,
+                                  int with_state, int biot_savart,
+                                  void* stream) {
+  const Plan plan = fftblock::make_plan(n);
+  const long long Q = static_cast<long long>(n1) * h;
+  if (plan.nst == 0 || n > 1024 || n1 < 1 || h < 1 || Q > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int passes = with_state ? 2 : 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return biot_savart
+             ? launch<true>(ur, ui, k0, k1, k2, yr, yi, tw, plan, n, h, Q,
+                            passes, st)
+             : launch<false>(ur, ui, k0, k1, k2, yr, yi, tw, plan, n, h, Q,
+                             passes, st);
 }

@@ -5,7 +5,8 @@ packed-Hermitian planar layout.  Kernel functions take and return planar
 ``(re, im)`` float32 pairs; a packed spectrum sits in h = n/2 columns with
 column 0 holding X[0] + i·X[n/2].
 
-Nine CUDA kernels (``csrc/``) carry the path:
+Nine CUDA kernels (``csrc/``; the fused three with template variants)
+carry the path:
 
 * ``fft_axis`` (``fft_axis_planar``): c2c along a non-last axis;
 * ``packed_rfft_last`` / ``packed_irfft_last`` (``rfft_last_packed`` /
@@ -15,19 +16,23 @@ Nine CUDA kernels (``csrc/``) carry the path:
   nf columns, with the 3/2 rule's truncation, zero-pad and scale folded in;
 * ``fft_last`` (``fft_last_planar_c2c``): c2c along the last axis, the first
   stage of ``cfft3d`` and of ``slab.C2C``'s 3/2-rule chain;
-* the packed NS3D right-hand side's fused kernels: ``curl_ifft_x`` (the
-  curl with the x inverse, for ``curl_irfft3d_packed``), ``cross_rfft_z``
-  (the cross product with the packed z r2c, for ``cross_rfft_zy_packed``)
-  and ``fft_x_epilogue`` (the x forward with the mask, projection and
-  viscous term, ``fft_x_epilogue_packed``).
+* the packed solvers' right-hand-side kernels: ``curl_ifft_x`` (the curl,
+  or with ``biot_savart`` the curl ÷ |K|², with the x inverse, for
+  ``curl_irfft3d_packed``), ``cross_rfft_z`` (a product, A × B, A × B +
+  C × D or a_c·t, with the packed z r2c, for ``cross_rfft_zy_packed`` and
+  ``mul_rfft_zy_packed``) and ``fft_x_epilogue`` (the x forward with the
+  mask, the projection, curl or divergence, the buoyancy rider and the
+  diffusive term, ``fft_x_epilogue_packed``).
 
 ``fused_zy_fwd`` / ``fused_zy_bwd`` keep the reference's contracts as one
 launch per stage (see the source note in ``csrc/fft_axis.cu``); so do the
-fused NS3D functions, whose y stages are ``fft_axis`` launches.
+fused right-hand-side functions, whose y stages are ``fft_axis`` launches.
 
 Every kernel function has a plain twin (``*_ref``) over ``torch.fft``.  A
 wrapper runs the twin for CPU tensors only; for CUDA tensors it launches the
-kernel or raises.  ``LAUNCHES`` counts kernel launches by kernel name.
+kernel or raises.  ``LAUNCHES`` counts kernel launches by kernel name, each
+template variant under its own name (``curl_ifft_x_biot_savart``,
+``cross2_rfft_z``, ``mul_rfft_z``, ``fft_x_epilogue_curl``, …).
 """
 
 from __future__ import annotations
@@ -47,15 +52,17 @@ __all__ = [
     "purify_plane0", "rfft3d", "irfft3d", "purify_plane0_dus",
     "curl_fused_ok", "cross_zy_ok", "fft_x_epilogue_ok", "curl_ifft_x",
     "curl_irfft3d_packed", "cross_rfft_z", "cross_rfft_zy_packed",
-    "fft_x_epilogue_packed", "cross", "kcross", "rfft_last_planar",
+    "mul_rfft_z", "mul_rfft_zy_packed", "fft_x_epilogue_packed", "cross",
+    "kvecs", "kcross", "kdot", "inv_ksq", "rfft_last_planar",
     "irfft_last_planar", "fft_last_planar_c2c", "cfft3d",
 ]
 
 LAUNCHES = {"fft_axis": 0, "packed_rfft_last": 0, "packed_irfft_last": 0,
-            "curl_ifft_x": 0, "cross_rfft_z": 0, "fft_x_epilogue": 0,
+            "curl_ifft_x": 0, "curl_ifft_x_biot_savart": 0,
+            "cross_rfft_z": 0, "cross2_rfft_z": 0, "mul_rfft_z": 0,
+            "fft_x_epilogue": 0, "fft_x_epilogue_buoy": 0,
+            "fft_x_epilogue_curl": 0, "fft_x_epilogue_div": 0,
             "planar_rfft_last": 0, "planar_irfft_last": 0, "fft_last": 0}
-
-_ITEM_FAMILY = "ROADMAP.md queue 1 item 7 (the model family)"
 
 
 def reset_launches() -> None:
@@ -454,7 +461,7 @@ def purify_plane0_dus(yr, yi):
     return yr, yi
 
 
-# -- the fused kernels of the packed NS3D right-hand side -------------------------
+# -- the fused kernels of the packed solvers' right-hand sides ----------------------
 #
 # The state is a packed pair (3, N0, N1, h); the wavenumbers and 2/3-rule
 # masks arrive as the solver's 1-D vectors k0/m0 (N0), k1/m1 (N1), k2/m2 (h).
@@ -479,7 +486,11 @@ def fft_x_epilogue_ok(n0: int) -> bool:
     return supported_c2c(n0)
 
 
-def _kvecs(k0, k1, k2):
+
+
+def kvecs(k0, k1, k2):
+    """The 1-D wavenumbers as broadcast factors (K0, K1, K2) of an
+    (N0, N1, n) grid."""
     return k0[:, None, None], k1[None, :, None], k2[None, None, :]
 
 
@@ -509,22 +520,38 @@ def kcross(K, v):
                         K[0] * v[1] - K[1] * v[0]])
 
 
+def kdot(K, v):
+    """K · V for broadcast wavenumber factors K = (K0, K1, K2)."""
+    return K[0] * v[0] + K[1] * v[1] + K[2] * v[2]
+
+
+def inv_ksq(k0, k1, k2) -> torch.Tensor:
+    """1/|K|² from the 1-D factors, with |K|² = 0 taken as 1."""
+    ksq = spectral.ksq(k0, k1, k2)
+    return 1.0 / torch.where(ksq == 0, 1.0, ksq)
+
+
 def _curl_pair(ur, ui, K):
     """Planar i K × Û: (re, im) = (−K×Ui, K×Ur)."""
     return -kcross(K, ui), kcross(K, ur)
 
 
-def curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state: bool = False):
-    cr, ci = _curl_pair(ur, ui, _kvecs(k0, k1, k2))
+def curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state: bool = False,
+                    biot_savart: bool = False):
+    cr, ci = _curl_pair(ur, ui, kvecs(k0, k1, k2))
+    if biot_savart:
+        inv = inv_ksq(k0, k1, k2)
+        cr, ci = cr * inv, ci * inv
     if with_state:
         cr, ci = torch.cat([cr, ur]), torch.cat([ci, ui])
     return fft_axis_planar_ref(cr, ci, axis=1, inverse=True)
 
 
-def curl_ifft_x(ur, ui, k0, k1, k2, with_state: bool = False):
-    """x inverse (1/N0) of i K × Û for a packed state (3, N0, N1, h), and
-    with ``with_state`` of Û itself from the same pass: one pair
-    (3 or 6, N0, N1, h), the curl's components first."""
+def curl_ifft_x(ur, ui, k0, k1, k2, with_state: bool = False,
+                biot_savart: bool = False):
+    """x inverse (1/N0) of i K × Û (÷ |K|² with ``biot_savart``) for a packed
+    state (3, N0, N1, h), and with ``with_state`` of Û itself from the same
+    pass: one pair (3 or 6, N0, N1, h), the curl's components first."""
     on_cpu = _check_float32(ur, ui, k0, k1, k2)
     _check_pair(ur, ui)
     _check_stack("curl_ifft_x", ur.shape, (k0, k1, k2))
@@ -532,96 +559,166 @@ def curl_ifft_x(ur, ui, k0, k1, k2, with_state: bool = False):
     if not curl_fused_ok(n0):
         raise ValueError(f"curl_ifft_x: N0={n0} outside the kernel envelope")
     if on_cpu:
-        return curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state)
+        return curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state, biot_savart)
     shape = (6 if with_state else 3, n0, n1, h)
     yr = torch.empty(shape, dtype=torch.float32, device=ur.device)
     yi = torch.empty_like(yr)
-    _launch("curl_ifft_x", "curl_ifft_x_launch", ur.data_ptr(), ui.data_ptr(),
+    _launch("curl_ifft_x_biot_savart" if biot_savart else "curl_ifft_x",
+            "curl_ifft_x_launch", ur.data_ptr(), ui.data_ptr(),
             k0.data_ptr(), k1.data_ptr(), k2.data_ptr(), yr.data_ptr(),
             yi.data_ptr(), _twiddles(n0, n0, 1, ur.device).data_ptr(),
-            n0, n1, h, int(with_state), device=ur.device)
+            n0, n1, h, int(with_state), int(biot_savart), device=ur.device)
     return yr, yi
 
 
-def curl_irfft3d_packed_ref(ur, ui, k0, k1, k2, s, with_state: bool = False):
-    w = fused_zy_bwd_ref(*curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state),
-                         int(s[-1]))
+def curl_irfft3d_packed_ref(ur, ui, k0, k1, k2, s, biot_savart: bool = False,
+                            with_state: bool = False):
+    w = fused_zy_bwd_ref(*curl_ifft_x_ref(ur, ui, k0, k1, k2, with_state,
+                                          biot_savart), int(s[-1]))
     return (w[:3], w[3:]) if with_state else w
 
 
 def curl_irfft3d_packed(ur, ui, k0, k1, k2, s, biot_savart: bool = False,
                         with_state: bool = False):
-    """W = irfft3d of i K × Û for a packed state (3, N0, N1, h); ``s`` is
-    the physical shape.  The curl rides the x-inverse kernel, then one y
-    inverse and one z c2r run over all the components.  ``with_state``
-    also returns the state's inverse from the same pass: (W, U), views of
-    one (6, N0, N1, N2) tensor."""
-    if biot_savart:
-        raise NotImplementedError(f"biot_savart (VV): see {_ITEM_FAMILY}")
-    w = fused_zy_bwd(*curl_ifft_x(ur, ui, k0, k1, k2, with_state),
-                     int(s[-1]))
+    """W = irfft3d of i K × Û for a packed state (3, N0, N1, h), of
+    i K × Û / |K|² with ``biot_savart`` (the velocity of a vorticity
+    state); ``s`` is the physical shape.  The curl rides the x-inverse
+    kernel, then one y inverse and one z c2r run over all the components.
+    ``with_state`` also returns the state's own inverse from the same pass:
+    (W, U), views of one (6, N0, N1, N2) tensor."""
+    w = fused_zy_bwd(*curl_ifft_x(ur, ui, k0, k1, k2, with_state,
+                                  biot_savart), int(s[-1]))
     return (w[:3], w[3:]) if with_state else w
 
 
-def cross_rfft_z_ref(a, b):
-    return rfft_last_packed_ref(cross(a, b))
+# -- a product of physical stacks with the packed z r2c behind it ----------------
+#
+# One kernel (csrc/cross_rfft_z.cu) over three loads, each counted under its
+# own name: "cross_rfft_z" (A × B), "cross2_rfft_z" (A × B + C × D, MHD) and
+# "mul_rfft_z" (a_c·t, the Boussinesq scalar flux).
+
+_PRODUCT_OPS = {"cross_rfft_z": 0, "cross2_rfft_z": 1, "mul_rfft_z": 2}
 
 
-def cross_rfft_z(a, b):
-    """Packed z r2c of A × B for physical 3-stacks (3, …, n): a pair
-    (3, …, n/2).  The cross product forms in shared memory."""
-    on_cpu = _check_float32(a, b)
-    if a.shape != b.shape or a.ndim < 2 or a.shape[0] != 3:
-        raise ValueError(f"cross_rfft_z: needs two (3, …, n) stacks, got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+def _product_rfft_z(name, ins, twin):
+    """Validates the stacks of a product (3, …, n) [and the scalar field
+    (1, …, n) of ``mul``] and launches its kernel; on the CPU, runs
+    ``twin``."""
+    a = ins[0]
+    on_cpu = _check_float32(*ins)
+    want = [a.shape] * len(ins)
+    if name == "mul_rfft_z":
+        want[1] = (1,) + tuple(a.shape[1:])
+    if a.ndim < 2 or a.shape[0] != 3 or [x.shape for x in ins] != want:
+        raise ValueError(f"{name}: needs (3, …, n) stacks (the scalar field "
+                         f"of mul (1, …, n)), got "
+                         f"{[tuple(x.shape) for x in ins]}")
     n = int(a.shape[-1])
     if not supported_r2c(n):
-        raise ValueError(f"cross_rfft_z: n={n} outside the kernel envelope")
+        raise ValueError(f"{name}: n={n} outside the kernel envelope")
     if on_cpu:
-        return cross_rfft_z_ref(a, b)
+        return twin(*ins)
     h = n // 2
     yr = torch.empty(a.shape[:-1] + (h,), dtype=torch.float32,
                      device=a.device)
     yi = torch.empty_like(yr)
-    _launch("cross_rfft_z", "cross_rfft_z_launch", a.data_ptr(), b.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(),
+    c, d = (ins[2].data_ptr(), ins[3].data_ptr()) if len(ins) == 4 \
+        else (None, None)
+    _launch(name, "cross_rfft_z_launch", a.data_ptr(), ins[1].data_ptr(), c,
+            d, yr.data_ptr(), yi.data_ptr(),
             _twiddles(h, h, -1, a.device).data_ptr(),
             _twiddles(n, h, -1, a.device).data_ptr(),
-            a[0].numel() // n, n, device=a.device)
+            a[0].numel() // n, n, _PRODUCT_OPS[name], device=a.device)
     return yr, yi
 
 
-def cross_rfft_zy_packed_ref(a, b):
-    return fft_axis_planar_ref(*cross_rfft_z_ref(a, b), axis=2)
+def _cross_ins(a, b, c, d):
+    if (c is None) != (d is None):
+        raise ValueError("cross2 takes both c and d")
+    return (a, b) if c is None else (a, b, c, d)
+
+
+def cross_rfft_z_ref(a, b, c=None, d=None):
+    f = cross(a, b)
+    if c is not None:
+        f = f + cross(c, d)
+    return rfft_last_packed_ref(f)
+
+
+def cross_rfft_z(a, b, c=None, d=None):
+    """Packed z r2c of A × B [+ C × D] for physical 3-stacks (3, …, n): a
+    pair (3, …, n/2).  The product forms in shared memory."""
+    return _product_rfft_z("cross_rfft_z" if c is None else "cross2_rfft_z",
+                           _cross_ins(a, b, c, d), cross_rfft_z_ref)
+
+
+def mul_rfft_z_ref(a, t):
+    return rfft_last_packed_ref(a * t)
+
+
+def mul_rfft_z(a, t):
+    """Packed z r2c of a_c·t for a physical 3-stack ``a`` (3, …, n) and a
+    scalar field ``t`` (1, …, n): a pair (3, …, n/2)."""
+    return _product_rfft_z("mul_rfft_z", (a, t), mul_rfft_z_ref)
+
+
+def cross_rfft_zy_packed_ref(a, b, c=None, d=None):
+    return fft_axis_planar_ref(*cross_rfft_z_ref(a, b, c, d), axis=2)
+
+
+def _check_zy(name, a) -> None:
+    _check_stack(name, a.shape)
+    if not cross_zy_ok(a.shape[2], a.shape[3]):
+        raise ValueError(f"{name}: (N1, N2) = {tuple(a.shape[2:])} outside "
+                         f"the kernel envelope")
 
 
 def cross_rfft_zy_packed(a, b, c=None, d=None):
-    """(A × B) with the packed z r2c and the y c2c behind it, for physical
-    3-stacks (3, N0, N1, N2): the pair (3, N0, N1, N2/2), x pending (feed
-    ``fft_x_epilogue_packed``).  The cross product never lands in device
+    """(A × B [+ C × D]) with the packed z r2c and the y c2c behind it, for
+    physical 3-stacks (3, N0, N1, N2): the pair (3, N0, N1, N2/2), x pending
+    (feed ``fft_x_epilogue_packed``).  The product never lands in device
     memory; the y stage is an ``fft_axis`` launch."""
-    if c is not None or d is not None:
-        raise NotImplementedError(f"cross2 (A×B + C×D, MHD): see "
-                                  f"{_ITEM_FAMILY}")
-    _check_stack("cross_rfft_zy_packed", a.shape)
-    if not cross_zy_ok(a.shape[2], a.shape[3]):
-        raise ValueError(f"cross_rfft_zy_packed: (N1, N2) = "
-                         f"{tuple(a.shape[2:])} outside the kernel envelope")
-    yr, yi = cross_rfft_z(a, b)
-    return fft_axis_planar(yr, yi, axis=2)
+    _check_zy("cross_rfft_zy_packed", a)
+    return fft_axis_planar(*cross_rfft_z(a, b, c, d), axis=2)
+
+
+def mul_rfft_zy_packed_ref(a, t):
+    return fft_axis_planar_ref(*mul_rfft_z_ref(a, t), axis=2)
+
+
+def mul_rfft_zy_packed(a, t):
+    """(a_c·t) for a physical 3-stack (3, N0, N1, N2) and a scalar field
+    ``t`` (1, N0, N1, N2), with the packed z r2c and the y c2c behind it:
+    the pair (3, N0, N1, N2/2), x pending (the Boussinesq scalar flux u·θ,
+    for ``fft_x_epilogue_packed`` in mode "div")."""
+    _check_zy("mul_rfft_zy_packed", a)
+    return fft_axis_planar(*mul_rfft_z(a, t), axis=2)
+
+
+# -- the x forward with the right-hand side's epilogue -----------------------------
+
+_EPILOGUE_MODES = {"project": 0, "curl": 1, "div": 2}
 
 
 def fft_x_epilogue_packed_ref(fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2,
-                              visc: float):
+                              mode: str, visc: float, buoy=None):
     Fr, Fi = fft_axis_planar_ref(fzr, fzi, axis=1)
-    K = _kvecs(k0, k1, k2)
+    K = kvecs(k0, k1, k2)
     mask = m0[:, None, None] * (m1[None, :, None] * m2[None, None, :])
     Fr, Fi = Fr * mask, Fi * mask
-    ksq = spectral.ksq(k0, k1, k2)
-    inv = 1.0 / torch.where(ksq == 0, 1.0, ksq)
-    dr = (K[0] * Fr[0] + K[1] * Fr[1] + K[2] * Fr[2]) * inv
-    di = (K[0] * Fi[0] + K[1] * Fi[1] + K[2] * Fi[2]) * inv
-    nk = visc * ksq
+    if buoy is not None:                  # unmasked θ̂ joins after the mask
+        tr, ti, ri = buoy
+        Fr[2] += ri * tr[0]
+        Fi[2] += ri * ti[0]
+    nk = visc * spectral.ksq(k0, k1, k2)
+    if mode == "div":
+        return torch.stack([kdot(K, Fi) - nk * sr[0],
+                            -kdot(K, Fr) - nk * si[0]])[:, None]
+    if mode == "curl":
+        return torch.stack([-kcross(K, Fi) - nk * sr,
+                            kcross(K, Fr) - nk * si])
+    inv = inv_ksq(k0, k1, k2)
+    dr, di = kdot(K, Fr) * inv, kdot(K, Fi) * inv
     out = torch.empty((2,) + tuple(fzr.shape), dtype=torch.float32,
                       device=fzr.device)
     for c in range(3):
@@ -631,38 +728,70 @@ def fft_x_epilogue_packed_ref(fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2,
 
 
 def fft_x_epilogue_packed(fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2,
-                          mode: str, visc: float, buoy=None):
-    """x forward of the pair after ``cross_rfft_zy_packed`` with the
-    right-hand side's epilogue, ``mode="project"``: the 2/3-rule mask, the
-    Leray projection and − visc·k²·S, with ``(sr, si)`` the packed state
-    (unmasked).  Returns the increment as one (2, 3, N0, N1, h) tensor whose
-    [0]/[1] are the re/im planes.  The plane-0 rider is not purified here:
-    callers apply ``purify_plane0_dus``."""
-    if mode != "project":
-        raise NotImplementedError(f"mode={mode!r} (VV, Boussinesq): see "
-                                  f"{_ITEM_FAMILY}")
-    if buoy is not None:
-        raise NotImplementedError(f"buoy (Boussinesq): see {_ITEM_FAMILY}")
+                          mode: str, visc: float, buoy=None, out=None):
+    """x forward of the pair after ``cross_rfft_zy_packed`` (or
+    ``mul_rfft_zy_packed``) with the right-hand side's epilogue: the
+    2/3-rule mask, then ``mode``
+
+      "project": the Leray projection, F̂ − K (K·F̂)/|K|²;
+      "curl":    i K × F̂;
+      "div":     −i K · F̂, with a one-component state and output;
+
+    then − visc·k²·S, with ``(sr, si)`` the packed state (unmasked):
+    (3, N0, N1, h), or (1, N0, N1, h) for "div".  ``buoy=(tr, ti, ri)``
+    (mode "project" only) adds ri·θ̂ to F̂'s third component after the mask
+    and before the projection, θ̂ = (tr, ti) the (1, N0, N1, h) scalar state
+    (unmasked).  Returns the increment as one (2, ns, N0, N1, h) tensor whose
+    [0]/[1] are the re/im planes, or writes it into ``out`` (such a view
+    with contiguous [0] and [1]) and returns that.  The plane-0 rider is not
+    purified here: callers apply ``purify_plane0_dus``."""
+    if mode not in _EPILOGUE_MODES:
+        raise ValueError(f"mode must be one of {tuple(_EPILOGUE_MODES)}, "
+                         f"got {mode!r}")
+    if buoy is not None and mode != "project":
+        raise ValueError("the buoyancy rider takes mode='project'")
     m0, m1, m2 = (m.to(torch.float32) for m in (m0, m1, m2))
-    on_cpu = _check_float32(fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2)
+    extra = () if buoy is None else tuple(buoy[:2])
+    on_cpu = _check_float32(fzr, fzi, sr, si, *extra, k0, k1, k2, m0, m1, m2)
     _check_pair(fzr, fzi)
-    _check_pair(fzr, sr)
     _check_pair(sr, si)
     _check_stack("fft_x_epilogue_packed", fzr.shape,
                  (k0, k1, k2, m0, m1, m2))
+    ns = 1 if mode == "div" else 3
+    one = (1,) + tuple(fzr.shape[1:])
+    if tuple(sr.shape) != (ns,) + one[1:]:
+        raise ValueError(f"fft_x_epilogue_packed: mode {mode!r} takes a "
+                         f"{(ns,) + one[1:]} state, got {tuple(sr.shape)}")
+    if any(tuple(t.shape) != one for t in extra):
+        raise ValueError(f"fft_x_epilogue_packed: the buoyancy rider is a "
+                         f"{one} pair, got {[tuple(t.shape) for t in extra]}")
     _, n0, n1, h = fzr.shape
     if not fft_x_epilogue_ok(n0):
         raise ValueError(f"fft_x_epilogue_packed: N0={n0} outside the "
                          f"kernel envelope")
+    shape = (2, ns, n0, n1, h)
+    if out is not None and (tuple(out.shape) != shape
+                            or out.dtype != torch.float32
+                            or out.device != fzr.device
+                            or not (out[0].is_contiguous()
+                                    and out[1].is_contiguous())):
+        raise ValueError(f"fft_x_epilogue_packed: out must be a float32 "
+                         f"{shape} tensor on {fzr.device} with contiguous "
+                         f"[0] and [1]")
     if on_cpu:
-        return fft_x_epilogue_packed_ref(fzr, fzi, sr, si, k0, k1, k2,
-                                         m0, m1, m2, visc)
-    out = torch.empty((2, 3, n0, n1, h), dtype=torch.float32,
-                      device=fzr.device)
-    _launch("fft_x_epilogue", "fft_x_epilogue_launch", fzr.data_ptr(),
-            fzi.data_ptr(), sr.data_ptr(), si.data_ptr(), k0.data_ptr(),
-            k1.data_ptr(), k2.data_ptr(), m0.data_ptr(), m1.data_ptr(),
-            m2.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            _twiddles(n0, n0, -1, fzr.device).data_ptr(), n0, n1, h,
-            float(visc), device=fzr.device)
+        res = fft_x_epilogue_packed_ref(fzr, fzi, sr, si, k0, k1, k2,
+                                        m0, m1, m2, mode, visc, buoy)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=fzr.device)
+    name = ("fft_x_epilogue" if mode == "project" else
+            f"fft_x_epilogue_{mode}") + ("_buoy" if buoy is not None else "")
+    tr, ti = (t.data_ptr() for t in extra) if extra else (None, None)
+    _launch(name, "fft_x_epilogue_launch", fzr.data_ptr(),
+            fzi.data_ptr(), sr.data_ptr(), si.data_ptr(), tr, ti,
+            k0.data_ptr(), k1.data_ptr(), k2.data_ptr(), m0.data_ptr(),
+            m1.data_ptr(), m2.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), _twiddles(n0, n0, -1, fzr.device).data_ptr(),
+            n0, n1, h, float(visc), _EPILOGUE_MODES[mode],
+            float(buoy[2]) if buoy is not None else 0.0, device=fzr.device)
     return out

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time and profile the PyTorch/CUDA port's NS3D RK4 step on one NVIDIA GPU,
-its configurations side by side: ``complex`` and ``packed`` (the 2/3 rule in
-each spectral layout) and ``padded`` (the complex layout with the 3/2 rule).
+"""Time and profile the PyTorch/CUDA port's RK4 steps on one NVIDIA GPU,
+their configurations side by side: NS3D's ``complex`` and ``packed`` (the
+2/3 rule in each spectral layout) and ``padded`` (the complex layout with
+the 3/2 rule), and the packed steps of the solver family, ``vv``, ``mhd``
+and ``boussinesq`` (2/3 rule).
 
-    python3 profile_step.py [--n 256] [--steps 5]
+    python3 profile_step.py [--n 256] [--steps 5] [--configs packed,vv]
 
 1. CUDA-event ms per step, ``--steps`` steps a sample, the configurations
-   in turns (complex packed padded padded packed complex complex packed
-   padded) after one warm-up step each;
+   in turns (in order, reversed, in order again) after one warm-up step
+   each;
 2. ``torch.profiler`` over 3 steps of each configuration: the kernel count, the
    device busy time (union of the kernels' intervals), the idle share of
    the span from the first kernel's start to the last one's end, and the
@@ -21,6 +23,7 @@ Prints the card's name and power limit first; needs a CUDA device.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -28,22 +31,31 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CONFIGS = {  # name: (spectral_layout, dealias)
-    "complex": ("complex", "2/3-rule"),
-    "packed": ("packed", "2/3-rule"),
-    "padded": ("complex", "3/2-rule"),
+CONFIGS = {  # name: (model, spectral_layout, dealias, initial state)
+    "complex": ("NavierStokes3D", "complex", "2/3-rule", "taylor_green"),
+    "packed": ("NavierStokes3D", "packed", "2/3-rule", "taylor_green"),
+    "padded": ("NavierStokes3D", "complex", "3/2-rule", "taylor_green"),
+    "vv": ("VorticityVelocity3D", "packed", "2/3-rule", "taylor_green"),
+    "mhd": ("MHD3D", "packed", "2/3-rule", "taylor_green_mhd"),
+    "boussinesq": ("Boussinesq3D", "packed", "2/3-rule",
+                   "taylor_green_stratified"),
 }
-ORDER = (*CONFIGS, *reversed(CONFIGS), *CONFIGS)
-HAND_WRITTEN = ("curl_ifft_x_kernel", "cross_rfft_z_kernel",
+NU = 0.000625
+EXTRA = {"MHD3D": {"eta": NU}, "Boussinesq3D": {"kappa": NU}}
+HAND_WRITTEN = ("curl_ifft_x_kernel", "product_rfft_z_kernel",
                 "fft_x_epilogue_kernel", "packed_irfft_kernel",
                 "packed_rfft_kernel", "fft_axis_kernel",
                 "planar_rfft_kernel", "planar_irfft_kernel", "fft_last_kernel")
 
 
 def group(name):
+    """A kernel's group: each hand-written kernel (a template variant with
+    its arguments, e.g. ``fft_x_epilogue_kernel<1, false>``), ``cat``,
+    reductions, copies, or other elementwise work."""
     for key in HAND_WRITTEN:
         if key in name:
-            return key
+            m = re.search(re.escape(key) + r"(<[^>]*>)?", name)
+            return m.group(0)
     low = name.lower()
     if "cat" in low:
         return "cat"
@@ -72,7 +84,14 @@ def main():
     ap.add_argument("--n", type=int, default=256, help="grid size n³")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps per timed sample")
+    ap.add_argument("--configs", default=",".join(CONFIGS),
+                    help="comma-separated configurations, of "
+                         + ", ".join(CONFIGS))
     args = ap.parse_args()
+    configs = args.configs.split(",")
+    if not set(configs) <= set(CONFIGS):
+        ap.error(f"--configs: unknown {sorted(set(configs) - set(CONFIGS))}")
+    order = (*configs, *reversed(configs), *configs)
 
     import torch
     if not torch.cuda.is_available():
@@ -80,7 +99,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     from torch.profiler import ProfilerActivity, profile
-    from mpifft4py_tpu_torch.models.navier_stokes import NavierStokes3D
+    from mpifft4py_tpu_torch import models
     from mpifft4py_tpu_torch.slab import R2C
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -88,10 +107,14 @@ def main():
                          text=True, check=True).stdout.strip(), flush=True)
     FFT = R2C(np.array([args.n] * 3), np.array([2 * np.pi] * 3), None,
               "single", device="cuda")
-    sol = {c: NavierStokes3D(FFT, nu=0.000625, dt=0.01,
-                             spectral_layout=CONFIGS[c][0],
-                             dealias=CONFIGS[c][1]) for c in CONFIGS}
-    state = {c: s.step(s.taylor_green()) for c, s in sol.items()}
+    sol, state = {}, {}
+    for c in configs:
+        model, layout, dealias, init = CONFIGS[c]
+        sol[c] = getattr(models, model)(FFT, nu=NU, dt=0.01,
+                                        spectral_layout=layout,
+                                        dealias=dealias,
+                                        **EXTRA.get(model, {}))
+        state[c] = sol[c].step(getattr(sol[c], init)())
     torch.cuda.synchronize()
 
     def event_ms(c):
@@ -105,16 +128,16 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(b) / args.steps
 
-    res = {c: [] for c in CONFIGS}
-    for c in ORDER:
+    res = {c: [] for c in configs}
+    for c in order:
         res[c].append(event_ms(c))
-    print(f"NS3D {args.n}^3 RK4 event ms/step ({args.steps} steps a sample, "
-          f"in turns {' '.join(ORDER)}): {json.dumps(res)}",
+    print(f"{args.n}^3 RK4 event ms/step ({args.steps} steps a sample, "
+          f"in turns {' '.join(order)}): {json.dumps(res)}",
           flush=True)
 
     out = os.path.join(HERE, "build", "profile_step")
     os.makedirs(out, exist_ok=True)
-    for c in CONFIGS:
+    for c in configs:
         s, U = sol[c], state[c]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,

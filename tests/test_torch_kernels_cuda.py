@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from mpifft4py_tpu_torch.models.navier_stokes import NavierStokes3D
+from mpifft4py_tpu_torch.models import (MHD3D, Boussinesq3D, NavierStokes3D,
+                                        VorticityVelocity3D)
 from mpifft4py_tpu_torch.ops import fft3d as p3
 from mpifft4py_tpu_torch.slab import C2C, R2C
 
@@ -122,7 +123,37 @@ def test_fft_x_epilogue_matches_twin(cuda, shape):
     got = p3.fft_x_epilogue_packed(fr, fi, sr, si, *km, "project", 0.01)
     assert p3.LAUNCHES["fft_x_epilogue"] == before + 1
     _close(tuple(got),
-           tuple(p3.fft_x_epilogue_packed_ref(fr, fi, sr, si, *km, 0.01)))
+           tuple(p3.fft_x_epilogue_packed_ref(fr, fi, sr, si, *km, "project",
+                                              0.01)))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("shape", PACKED)
+def test_curl_ifft_x_biot_savart_matches_twin(cuda, shape, with_state):
+    ur, ui = _f32(shape, cuda, 1), _f32(shape, cuda, 2)
+    k = _kvecs(shape[1:], cuda)[:3]
+    before = p3.LAUNCHES["curl_ifft_x_biot_savart"]
+    got = p3.curl_ifft_x(ur, ui, *k, with_state, True)
+    assert p3.LAUNCHES["curl_ifft_x_biot_savart"] == before + 1
+    _close(got, p3.curl_ifft_x_ref(ur, ui, *k, with_state, True))
+
+
+@pytest.mark.parametrize("variant", ["curl", "div", "buoy"])
+@pytest.mark.parametrize("shape", PACKED)
+def test_fft_x_epilogue_variants_match_twin(cuda, shape, variant):
+    fr, fi, sr, si, tr, ti = (_f32(shape, cuda, j) for j in range(6))
+    if variant == "div":
+        sr, si = sr[:1], si[:1]
+    mode = "project" if variant == "buoy" else variant
+    buoy = (tr[:1], ti[:1], 0.7) if variant == "buoy" else None
+    km = _kvecs(shape[1:], cuda)
+    name = f"fft_x_epilogue_{variant}"
+    before = p3.LAUNCHES[name]
+    got = p3.fft_x_epilogue_packed(fr, fi, sr, si, *km, mode, 0.01,
+                                   buoy=buoy)
+    assert p3.LAUNCHES[name] == before + 1
+    _close(tuple(got), tuple(p3.fft_x_epilogue_packed_ref(
+        fr, fi, sr, si, *km, mode, 0.01, buoy=buoy)))
 
 
 @pytest.mark.parametrize("shape", [(3, 4, 64, 256), (3, 2, 512, 512),
@@ -134,6 +165,22 @@ def test_cross_rfft_z_matches_twin(cuda, shape):
     assert p3.LAUNCHES["cross_rfft_z"] == before + 1
     _close(got, p3.cross_rfft_z_ref(a, b))
     _close(p3.cross_rfft_zy_packed(a, b), p3.cross_rfft_zy_packed_ref(a, b))
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 64, 256), (3, 2, 512, 512),
+                                   (3, 7, 16, 48), (3, 3, 24, 1024)])
+def test_cross2_and_mul_rfft_z_match_twin(cuda, shape):
+    a, b, c, d = (_f32(shape, cuda, j) for j in range(4))
+    t = _f32((1,) + shape[1:], cuda, 5)
+    before = dict(p3.LAUNCHES)
+    got2, gotm = p3.cross_rfft_z(a, b, c, d), p3.mul_rfft_z(a, t)
+    assert p3.LAUNCHES["cross2_rfft_z"] == before["cross2_rfft_z"] + 1
+    assert p3.LAUNCHES["mul_rfft_z"] == before["mul_rfft_z"] + 1
+    _close(got2, p3.cross_rfft_z_ref(a, b, c, d))
+    _close(gotm, p3.mul_rfft_z_ref(a, t))
+    _close(p3.cross_rfft_zy_packed(a, b, c, d),
+           p3.cross_rfft_zy_packed_ref(a, b, c, d))
+    _close(p3.mul_rfft_zy_packed(a, t), p3.mul_rfft_zy_packed_ref(a, t))
 
 
 def test_curl_irfft3d_packed_matches_twin(cuda):
@@ -156,6 +203,26 @@ def test_packed_step_on_the_card_matches_complex(cuda):
     torch.cuda.synchronize()
     err = float(torch.linalg.vector_norm(p.from_packed(Up) - Uc)
                 / torch.linalg.vector_norm(Uc))
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("model", ["VV", "MHD", "Boussinesq"])
+def test_family_packed_steps_on_the_card_match_complex(cuda, model):
+    FFT = R2C(np.array([32, 32, 256]), np.array([2 * np.pi] * 3), None,
+              "single", device=cuda)
+    cls, kw, init = {
+        "VV": (VorticityVelocity3D, {}, "taylor_green"),
+        "MHD": (MHD3D, {"eta": 0.02}, "taylor_green_mhd"),
+        "Boussinesq": (Boussinesq3D, {"kappa": 0.02},
+                       "taylor_green_stratified")}[model]
+    c = cls(FFT, nu=0.01, dt=0.01, **kw)
+    p = cls(FFT, nu=0.01, dt=0.01, spectral_layout="packed", **kw)
+    Sc, Sp = getattr(c, init)(), getattr(p, init)()
+    for _ in range(2):
+        Sc, Sp = c.step(Sc), p.step(Sp)
+    torch.cuda.synchronize()
+    err = float(torch.linalg.vector_norm(p.from_packed(Sp) - Sc)
+                / torch.linalg.vector_norm(Sc))
     assert err <= 1e-5
 
 

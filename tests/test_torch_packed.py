@@ -78,6 +78,13 @@ def _kvecs(shape, scale=(1.0, 0.5, 2.0)):
             np.arange(h, dtype=np.float32) * scale[2])
 
 
+def _masks(shape):
+    """1-D 2/3-rule masks of a packed (N0, N1, h) layout."""
+    return tuple(np.abs(k) < 2 / 3 * (n // 2) for k, n in
+                 zip(_kvecs(shape, (1, 1, 1)),
+                     (shape[0], shape[1], 2 * shape[2])))
+
+
 # -- the kernels ------------------------------------------------------------------
 
 @pytest.mark.parametrize("with_state", [True, False])
@@ -115,9 +122,7 @@ def test_fft_x_epilogue_packed_matches_pallas(rng):
     pk = (3, 16, 16, 128)
     fr, fi, sr, si = (_f32(rng, pk) for _ in range(4))
     ks = _kvecs(pk[1:])
-    ms = tuple(np.abs(k) < c for k, c in
-               zip(_kvecs(pk[1:], (1, 1, 1)),
-                   (2 / 3 * 8, 2 / 3 * 8, 2 / 3 * 128)))
+    ms = _masks(pk[1:])
     ref = jp3.fft_x_epilogue_packed(*map(jnp.asarray, (fr, fi, sr, si) + ks
                                          + ms), "project", 0.01)
     got = tp3.fft_x_epilogue_packed(*map(_t, (fr, fi, sr, si) + ks + ms),
@@ -137,22 +142,43 @@ def test_purify_plane0_dus_matches_reference(rng):
 
 
 def test_off_path_variants_raise(rng):
+    """Every variant of the fused kernels is ported; what stays refused is
+    outside their envelope: wrong vectors, an unknown mode, the buoyancy
+    rider outside mode "project", a state or rider of the wrong
+    component count, cross2 without its fourth stack, a mul field that is
+    not one component."""
     x = _t(_f32(rng, (3, 16, 16, 128)))
     k = tuple(map(_t, _kvecs((16, 16, 128))))
     m = tuple(torch.ones_like(v, dtype=torch.bool) for v in k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp3.curl_irfft3d_packed(x, x, *k, (16, 16, 256), biot_savart=True)
-    a = _t(_f32(rng, (3, 2, 16, 256)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp3.cross_rfft_zy_packed(a, a, a, a)
-    for mode in ("curl", "div"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tp3.fft_x_epilogue_packed(x, x, x, x, *k, *m, mode, 0.01)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp3.fft_x_epilogue_packed(x, x, x, x, *k, *m, "project", 0.01,
-                                  buoy=(x[:1], x[:1], 0.5))
     with pytest.raises(ValueError):
         tp3.curl_irfft3d_packed(x, x, k[1], k[0][:8], k[2], (16, 8, 256))
+    with pytest.raises(ValueError):
+        tp3.curl_irfft3d_packed(x, x, k[1], k[0][:8], k[2], (16, 8, 256),
+                                biot_savart=True, with_state=True)
+    a = _t(_f32(rng, (3, 2, 16, 256)))
+    with pytest.raises(ValueError, match="cross2"):
+        tp3.cross_rfft_zy_packed(a, a, a)
+    with pytest.raises(ValueError):
+        tp3.cross_rfft_zy_packed(a, a, a, a[:, :1])
+    with pytest.raises(ValueError):
+        tp3.mul_rfft_zy_packed(a, a[:2])
+    with pytest.raises(ValueError, match="mode"):
+        tp3.fft_x_epilogue_packed(x, x, x, x, *k, *m, "grad", 0.01)
+    for mode in ("curl", "div"):
+        with pytest.raises(ValueError, match="buoyancy"):
+            tp3.fft_x_epilogue_packed(x, x, x[:1] if mode == "div" else x,
+                                      x[:1] if mode == "div" else x, *k, *m,
+                                      mode, 0.01, buoy=(x[:1], x[:1], 0.5))
+    with pytest.raises(ValueError, match="state"):
+        tp3.fft_x_epilogue_packed(x, x, x, x, *k, *m, "div", 0.01)
+    with pytest.raises(ValueError, match="state"):
+        tp3.fft_x_epilogue_packed(x, x, x[:1], x[:1], *k, *m, "curl", 0.01)
+    with pytest.raises(ValueError, match="rider"):
+        tp3.fft_x_epilogue_packed(x, x, x, x, *k, *m, "project", 0.01,
+                                  buoy=(x, x, 0.5))
+    with pytest.raises(ValueError, match="out"):
+        tp3.fft_x_epilogue_packed(x, x, x, x, *k, *m, "project", 0.01,
+                                  out=torch.empty((2, 1, 16, 16, 128)))
 
 
 def test_gates_are_shape_predicates():
