@@ -29,20 +29,31 @@ Phases, each checked; any failed check makes the exit code non-zero:
    against the curl of phase 4's NS3D states, MHD's ∇·b at round-off, with
    ms per step, peak step memory and each kernel's launches per step, and
    each packed step's launches of its right-hand side's kernels checked
-   against 4 × the count of one right-hand side.
+   against 4 × the count of one right-hand side;
+8. the 2D family: ``line.R2C`` at 1024² and 2048² in "single" and
+   "double" (forwards against float64 ``torch.fft.rfft2``, round trips
+   with ``dealias`` None, 2/3 and 3/2), then ``NavierStokes2D`` RK4 from
+   the vortex pair, 5 steps: the packed layout at 1024² (rows 17–18 and
+   ``fft_axis``, their exact launches a step checked) and the complex
+   layout at 1024² and 2048², each against the float64 complex run, the
+   packed state against the complex one, the enstrophy decaying, with ms
+   per step (host clock and CUDA events) and peak step memory.
 
 Phase 3 also runs the 3/2-rule transforms at 256³ (the padded round trip,
 the forward of a product field against a float64 alias-sum oracle) and
 ``slab.C2C`` (forward against float64 ``torch.fft.fftn``, round trip, and
 the 3/2-rule round trip and forward, the latter against float64 ``fftn``
 on the 384³ grid truncated to 256³).
-Phases 3–7 are the main path: each runs with the kernels' launch counters
-set to 0 just before it and read just after, and phases 4–7 also read them
+Phases 3–8 are the main path: each runs with the kernels' launch counters
+set to 0 just before it and read just after, and phases 4–8 also read them
 around each of their steps.  Phase 2 also holds each template variant of
 the fused kernels (Biot–Savart curl, cross2 and mul products, the curl,
 div and buoyancy epilogues) against its twin at the 256³ shapes of the
-solvers' right-hand sides.  Each kernel's time is its median beside its
-plain twin's and, where one exists, one ``torch.fft`` call's computing the
+solvers' right-hand sides, and rows 17–18 (the DIF lane order of the
+packed 2D layout) at n = 512, 768 and 1024 on the 1024² field and the
+(4, 1024, n/2) stack of NS2D's batched inverse, against their twins (and
+row 17 against row 4 permuted, and a round trip) at 1e-6.  Each kernel's
+time is its median beside its plain twin's and, where one exists, one ``torch.fft`` call's computing the
 same function, with the bound of its bytes at 3.35 TB/s and of its FFT
 flops (5 n log2 n a complex transform, half that a real one) at 67 TFLOP/s
 FP32.  The second-to-last line is ``{"kernels": [...]}``; the last is
@@ -92,6 +103,11 @@ KERNELS = {
     "planar_rfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:439 (row 8)"),
     "planar_irfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:477 (row 9)"),
     "fft_last": (f"{CSRC}/fft_last.cu", f"{PALLAS}:531 (row 10)"),
+    "packed_rfft_last_zdif": (f"{CSRC}/packed_rfft.cu",
+                              "mpifft4py_tpu/ops/pallas_zdif.py:387 (row 17)"),
+    "packed_irfft_last_zdif": (f"{CSRC}/packed_rfft.cu",
+                               "mpifft4py_tpu/ops/pallas_zdif.py:415 "
+                               "(row 18)"),
 }
 NU, DT = 0.000625, 0.01
 TRANSFORM_KERNELS = ("fft_axis", "packed_rfft_last", "packed_irfft_last")
@@ -111,6 +127,12 @@ FAMILY_RHS = {
                    "cross_rfft_z": 1, "mul_rfft_z": 1,
                    "fft_x_epilogue_buoy": 1, "fft_x_epilogue_div": 1},
 }
+# the packed NS2D right-hand side's hand-written launches: the batched
+# (4, N0, h) inverse (x, then z) and the forward (z, then x)
+NS2D_RHS = {"packed_rfft_last_zdif": 1, "packed_irfft_last_zdif": 1,
+            "fft_axis": 2}
+NU2D, DT2D = 0.001, 0.001
+Z0_VORTEX_PAIR = 0.05 / (8 * np.pi)  # 0.5 <ω²> of the two Gaussians
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
 P3 = 1.5 ** 3                 # padsize³ of the 3/2 rule
@@ -168,7 +190,7 @@ def packed_vectors(n):
             + spectral.packed_dealias_masks(N, "cuda"))
 
 
-def kernel_phase(torch, p3, rng):
+def kernel_phase(torch, p3, zd, rng):
     """Each kernel against its twin; returns {name: its JSON numbers}."""
     def cu(shape):
         return torch.from_numpy(
@@ -176,15 +198,16 @@ def kernel_phase(torch, p3, rng):
 
     errs = {k: 0.0 for k in KERNELS}
 
-    def compare(name, label, got, ref):
+    def compare(name, label, got, ref, tol=1e-5):
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             rel = rel_err(torch, g, r)
             errs[name] = max(errs[name], float((g - r).abs().max()))
-            check(rel <= 1e-5, f"kernel {name} {label}: rel err {rel:.3e} "
-                               f"(max |twin| {float(r.abs().max()):.4e})")
+            check(rel <= tol, f"kernel {name} {label}: rel err {rel:.3e} "
+                              f"(max |twin| {float(r.abs().max()):.4e}, "
+                              f"limit {tol:g})")
 
     for N in (256, 512):
         h = N // 2
@@ -325,6 +348,29 @@ def kernel_phase(torch, p3, rng):
                     p3.fft_axis_planar_ref(ar, ai, axis, inv))
     del ar, ai
 
+    # rows 17-18, the DIF lane order of the packed 2D layout, at 1e-6: the
+    # whole 1024^2 field (1024 rows of n) and the (4, 1024, n/2) stack of
+    # NS2D's batched inverse, row 17 also against row 4 permuted, and a
+    # round trip
+    for n in (512, 768, 1024):
+        f = cu((1024, n))
+        zr, zi = zd.rfft_last_zdif(f)
+        compare("packed_rfft_last_zdif", f"(1024, {n})", (zr, zi),
+                zd.rfft_last_zdif_ref(f), 1e-6)
+        perm = torch.from_numpy(zd.zdif_perm(n)).cuda()
+        nr, ni = p3.rfft_last_packed(f)
+        compare("packed_rfft_last_zdif", f"(1024, {n}) vs row 4 permuted",
+                (zr, zi), (nr[:, perm], ni[:, perm]), 1e-6)
+        compare("packed_irfft_last_zdif", f"round trip (1024, {n})",
+                zd.irfft_last_zdif(zr, zi, n), f, 1e-6)
+        sr4, si4 = cu((4, 1024, n // 2)), cu((4, 1024, n // 2))
+        compare("packed_irfft_last_zdif", f"(4, 1024, {n // 2}) -> {n}",
+                zd.irfft_last_zdif(sr4, si4, n),
+                zd.irfft_last_zdif_ref(sr4, si4, n), 1e-6)
+    # the n = 1024 field and stack are NS2D 1024^2's shapes: timed below
+    f2 = f
+    s4c = torch.complex(cu((4, 1024, 513)), cu((4, 1024, 513)))
+
     # times at the main path's shapes: kernel, twin and the one torch.fft
     # call computing the same function (None for the fused kernels), in
     # turns, with the bound of the call's bytes and flops
@@ -388,6 +434,16 @@ def kernel_phase(torch, p3, rng):
                      lambda: p3.fft_last_planar_c2c_ref(cr, ci),
                      lambda: torch.fft.fft(zc, dim=-1), 4 * nbytes(cr),
                      fft_flops(cr.numel(), 256)),
+        # NS2D 1024^2: the forward on the field, the inverse on the stack
+        "packed_rfft_last_zdif": (
+            lambda: zd.rfft_last_zdif(f2), lambda: zd.rfft_last_zdif_ref(f2),
+            lambda: torch.fft.rfft(f2, dim=-1), 2 * nbytes(f2),
+            fft_flops(f2.numel(), 1024, True)),
+        "packed_irfft_last_zdif": (
+            lambda: zd.irfft_last_zdif(sr4, si4, 1024),
+            lambda: zd.irfft_last_zdif_ref(sr4, si4, 1024),
+            lambda: torch.fft.irfft(s4c, n=1024, dim=-1),
+            2 * nbytes(sr4, si4), fft_flops(2 * sr4.numel(), 1024, True)),
     }
     out = {}
     for name, (kern, plain, lib, nb, fl) in cases.items():
@@ -741,16 +797,112 @@ def family_phase(torch, p3, models, Uc, Ud):
         del d, W
 
 
+def line_phase(torch, LineR2C, rng):
+    """``line.R2C`` at 1024² and 2048², "single" and "double": the forward
+    (None, 2/3 rule) against float64 ``torch.fft.rfft2`` at 1e-5 (1e-12 in
+    "double"), and round trips at 1e-6 (1e-12) relative: physical
+    ``ifft2(fft2(u))`` for None, spectral ``fft2(ifft2(fu))`` under the 2/3
+    and the 3/2 rule (the latter through the 1.5n grid)."""
+    for n in (1024, 2048):
+        for precision, tol, ftol in (("single", 1e-6, 1e-5),
+                                     ("double", 1e-12, 1e-12)):
+            FFT = LineR2C(np.array([n, n]), np.array([TAU] * 2), None,
+                          precision, device="cuda")
+            lab = f"line.R2C {n}^2 {precision}"
+            u = FFT.shard_real(rng.standard_normal((n, n)))
+            ref = torch.fft.rfft2(u.double())
+            fu = FFT.fft2(u)
+            check(rel_err(torch, fu, ref) <= ftol,
+                  f"{lab} fft2 vs float64 rfft2: rel err "
+                  f"{rel_err(torch, fu, ref):.3e}")
+            err = rel_err(torch, FFT.ifft2(fu), u)
+            check(err < tol, f"{lab} ifft2(fft2(u)): rel err {err:.3e}")
+            fu23 = FFT.fft2(u, dealias="2/3-rule")
+            err = float((fu23 - ref * FFT.get_dealias_filter()).abs().max()
+                        / ref.abs().max())
+            check(err <= ftol, f"{lab} 2/3-rule fft2 vs masked float64 "
+                               f"rfft2: rel err {err:.3e}")
+            for dealias, spec in (("2/3-rule", fu23), ("3/2-rule", fu)):
+                back = FFT.ifft2(spec, dealias=dealias)
+                err = rel_err(torch, FFT.fft2(back, dealias=dealias), spec)
+                check(err < tol, f"{lab} {dealias} fft2(ifft2(fu)) on "
+                                 f"{tuple(back.shape)}: rel err {err:.3e}")
+            del FFT, u, ref, fu, fu23, back
+
+
+def event_ms_per_step(torch, s, U, steps=5):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(steps):
+        U = s.step(U)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / steps
+
+
+def ns2d_phase(torch, p3, LineR2C, NavierStokes2D):
+    """NS2D RK4 from the vortex pair, 5 steps: packed 1024², complex 1024²
+    and 2048² in float32, each against the float64 complex run; the
+    packed step's exact launches."""
+    def solver(n, precision, layout):
+        FFT = LineR2C(np.array([n, n]), np.array([TAU] * 2), None, precision,
+                      device="cuda")
+        return NavierStokes2D(FFT, nu=NU2D, dt=DT2D, spectral_layout=layout)
+
+    times = {}
+    for n, layouts in ((1024, ("packed", "complex")), (2048, ("complex",))):
+        d = solver(n, "double", "complex")
+        W = d.vortex_pair()
+        for _ in range(5):
+            W = d.step(W)
+        states = {}
+        for layout in layouts:
+            s = solver(n, "single", layout)
+            label = f"NS2D {layout} {n}^2"
+            S, _, ms, peak, steps = run_steps(
+                torch, p3, s, label, s.vortex_pair, s.enstrophy,
+                Z0_VORTEX_PAIR)
+            ev = event_ms_per_step(torch, s, S)
+            times[label] = (ms, ev, peak)
+            print(f"{label} launches per step: "
+                  f"{ {k: v / 5 for k, v in steps.items() if v} }",
+                  flush=True)
+            if layout == "packed":
+                for k, v in steps.items():
+                    want = 4 * 5 * NS2D_RHS.get(k, 0)
+                    check(v == want, f"{label} launched {k} {v} times in 5 "
+                                     f"RK4 steps (4 x 5 x its count in one "
+                                     f"right-hand side: {want})")
+                S = s.unpack_state(S)
+            states[layout] = S
+            err = rel_l2(torch, S, W)
+            check(err <= 1e-5, f"{label} vs the float64 complex run after 5 "
+                               f"steps: rel L2 err {err:.3e}")
+        if len(states) == 2:
+            err = rel_l2(torch, states["packed"], states["complex"])
+            check(err <= 1e-5, f"NS2D {n}^2 packed state (unpacked) vs the "
+                               f"complex one after 5 steps: rel L2 err "
+                               f"{err:.3e}")
+        del d, W, states
+    for label, (ms, ev, peak) in times.items():
+        print(f"time {label} RK4 2/3-rule single: {ms:.3f} ms/step (host "
+              f"clock over 5 steps, synchronised), {ev:.3f} ms/step (CUDA "
+              f"events over 5 steps); peak step memory "
+              f"{peak / 2**20:.2f} MiB above the resident", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from mpifft4py_tpu_torch.ops import _build, fft3d as p3
+    from mpifft4py_tpu_torch.ops import _build, fft3d as p3, zdif as zd
+    from mpifft4py_tpu_torch.line import R2C as LineR2C
     from mpifft4py_tpu_torch.slab import C2C, R2C
     from mpifft4py_tpu_torch.models import (Boussinesq3D, MHD3D,
-                                            NavierStokes3D,
+                                            NavierStokes2D, NavierStokes3D,
                                             VorticityVelocity3D)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -773,7 +925,7 @@ def main():
             print("ptxas " + line.split(":", 1)[-1].strip(), flush=True)
 
     rng = np.random.default_rng(SEED)
-    kern = kernel_phase(torch, p3, rng)
+    kern = kernel_phase(torch, p3, zd, rng)
 
     # the main path: each of its paths runs with the counts set to 0 just
     # before it and read just after
@@ -796,6 +948,8 @@ def main():
                                    "MHD": MHD3D, "Boussinesq": Boussinesq3D},
          Uc, Ud)
     del Uc, Ud
+    path(line_phase, torch, LineR2C, rng)
+    path(ns2d_phase, torch, p3, LineR2C, NavierStokes2D)
     for k, n in launches.items():
         check(n > 0, f"main path launched {k} {n} times")
 

@@ -18,6 +18,14 @@ from .utils.transfer import device_put, to_numpy
 
 _DIST_ITEM = "ROADMAP.md queue 1 item 8 (distributed transforms)"
 
+DEALIAS = (None, "2/3-rule", "3/2-rule")
+
+
+def _as_working(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as the reference's
+    ``np.asarray(...).astype(FFT.float)`` constants are."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
+
 
 class BaseFFT:
     """Constructor and bookkeeping shared by the transforms.
@@ -78,6 +86,23 @@ class BaseFFT:
 
     def gather(self, x) -> np.ndarray:
         return to_numpy(x)
+
+    # -- physical coordinates -----------------------------------------------------
+
+    def _local_coords(self):
+        """The 1-D physical coordinates of the mesh's axes."""
+        d = (self.L / self.N).astype(np.float64)
+        return tuple(torch.arange(int(n), dtype=self.float, device=self.device)
+                     * _as_working(di, self.float) for n, di in zip(self.N, d))
+
+    def get_local_mesh(self) -> torch.Tensor:
+        """(ndim,) + real_shape() physical coordinates."""
+        return torch.stack(torch.meshgrid(*self._local_coords(),
+                                          indexing="ij"))
+
+    def _check_dealias(self, dealias):
+        if dealias not in DEALIAS:
+            raise ValueError(f"unknown dealias={dealias!r}")
 
     # -- plan cache --------------------------------------------------------------
 

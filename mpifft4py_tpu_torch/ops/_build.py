@@ -40,6 +40,9 @@ _SIGNATURES = {
     "packed_rfft_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
     # xr, xi, y, tw_h, tw_n, rows, n, stream
     "packed_irfft_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
+    # the same two in the DIF lane order (rows 17-18)
+    "packed_rfft_zdif_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
+    "packed_irfft_zdif_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
     # ur, ui, k0, k1, k2, yr, yi, tw, n, n1, h, with_state, biot_savart,
     # stream
     "curl_ifft_x_launch": (_P,) * 8 + (_I,) * 5 + (_P,),

@@ -32,6 +32,32 @@ __device__ __forceinline__ float2 untangle(const float2* s, int pitch,
   return make_float2(Er + (w.x * Or - w.y * Oi), Ei + (w.x * Oi + w.y * Or));
 }
 
+// The DIF lane order of the reference's pallas_zdif.py (n = r*128, r in
+// {4, 6, 8}, h = n/2 = 64 r): k = r*t + b (t < 64) sits at lane off[b] + t,
+// slot p = lane / 128 holding the 64-lane pieces [b = p | b = r - p] and
+// slot 0 holding [0 | r/2].  Closed forms, no table (mirrored by
+// mpifft4py_tpu_torch/ops/zdif.py zdif_k / zdif_lane).
+__host__ __device__ inline bool zdif_ok(int n) {
+  return n % 256 == 0 && n / 128 >= 4 && n / 128 <= 8;
+}
+
+__device__ __forceinline__ int zdif_k(int lane, int n) {
+  const int r = n / 128;
+  const int p = lane / 128;
+  const int half = (lane / 64) & 1;
+  const int t = lane % 64;
+  const int b = p == 0 ? (half ? r / 2 : 0) : (half ? r - p : p);
+  return r * t + b;
+}
+
+__device__ __forceinline__ int zdif_lane(int k, int n) {
+  const int r = n / 128;
+  const int b = k % r;
+  const int t = k / r;
+  const int off = b == r / 2 ? 64 : 128 * min(b, r - b) + (b > r / 2 ? 64 : 0);
+  return off + t;
+}
+
 // The row geometry of the h-point FFT of real rows of length n = 2h.
 inline int half_geometry(int n, long long rows, fftblock::RowGeometry* g,
                          int comps = 1) {

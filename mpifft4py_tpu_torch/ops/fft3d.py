@@ -5,7 +5,7 @@ packed-Hermitian planar layout.  Kernel functions take and return planar
 ``(re, im)`` float32 pairs; a packed spectrum sits in h = n/2 columns with
 column 0 holding X[0] + i·X[n/2].
 
-Nine CUDA kernels (``csrc/``; the fused three with template variants)
+Eleven CUDA kernels (``csrc/``; the fused three with template variants)
 carry the path:
 
 * ``fft_axis`` (``fft_axis_planar``): c2c along a non-last axis;
@@ -16,6 +16,10 @@ carry the path:
   nf columns, with the 3/2 rule's truncation, zero-pad and scale folded in;
 * ``fft_last`` (``fft_last_planar_c2c``): c2c along the last axis, the first
   stage of ``cfft3d`` and of ``slab.C2C``'s 3/2-rule chain;
+* ``packed_rfft_last_zdif`` / ``packed_irfft_last_zdif`` (``zdif.py``; here
+  behind ``rfft_last_packed``/``irfft_last_packed`` with ``dif=True``): the
+  packed r2c / c2r with the spectrum in the reference's DIF lane order, for
+  the packed 2D layout;
 * the packed solvers' right-hand-side kernels: ``curl_ifft_x`` (the curl,
   or with ``biot_savart`` the curl ÷ |K|², with the x inverse, for
   ``curl_irfft3d_packed``), ``cross_rfft_z`` (a product, A × B, A × B +
@@ -62,7 +66,8 @@ LAUNCHES = {"fft_axis": 0, "packed_rfft_last": 0, "packed_irfft_last": 0,
             "cross_rfft_z": 0, "cross2_rfft_z": 0, "mul_rfft_z": 0,
             "fft_x_epilogue": 0, "fft_x_epilogue_buoy": 0,
             "fft_x_epilogue_curl": 0, "fft_x_epilogue_div": 0,
-            "planar_rfft_last": 0, "planar_irfft_last": 0, "fft_last": 0}
+            "planar_rfft_last": 0, "planar_irfft_last": 0, "fft_last": 0,
+            "packed_rfft_last_zdif": 0, "packed_irfft_last_zdif": 0}
 
 
 def reset_launches() -> None:
@@ -171,8 +176,14 @@ def rfft_last_packed_ref(x):
     return yr.contiguous(), yi.contiguous()
 
 
-def rfft_last_packed(x):
-    """real (…, n) -> packed planar (re, im), shape (…, n/2)."""
+def rfft_last_packed(x, dif: bool = False):
+    """real (…, n) -> packed planar (re, im), shape (…, n/2).  ``dif=True``
+    (the packed 2D layout): where ``zdif.zdif_ok(n)`` the lanes leave in
+    ``zdif.zdif_perm`` order, through ``zdif.rfft_last_zdif`` (row 17)."""
+    if dif:
+        from . import zdif as zd
+        if zd.zdif_active(int(x.shape[-1])):
+            return zd.rfft_last_zdif(x)
     on_cpu = _check_float32(x)
     n = int(x.shape[-1])
     if not supported_r2c(n):
@@ -199,8 +210,13 @@ def irfft_last_packed_ref(xr, xi, n: int):
     return torch.fft.irfft(X, n=n, dim=-1).contiguous()
 
 
-def irfft_last_packed(xr, xi, n: int):
-    """packed planar (…, n/2) -> real (…, n), scaled by 1/n."""
+def irfft_last_packed(xr, xi, n: int, dif: bool = False):
+    """packed planar (…, n/2) -> real (…, n), scaled by 1/n.  ``dif=True``:
+    the pair is in DIF lane order where ``zdif.zdif_ok(n)`` (row 18)."""
+    if dif:
+        from . import zdif as zd
+        if zd.zdif_active(n):
+            return zd.irfft_last_zdif(xr, xi, n)
     on_cpu = _check_float32(xr, xi)
     _check_pair(xr, xi)
     if not supported_r2c(n) or xr.shape[-1] != n // 2:

@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import BaseFFT
+from .base import BaseFFT, _as_working
 from .ops import fft3d as p3
 from .ops import fft_core as fc
 from .utils.spectral import (dealias_cutoffs, flip_conj_plane, pad_full_axis,
@@ -42,8 +42,6 @@ from .utils.spectral import (dealias_cutoffs, flip_conj_plane, pad_full_axis,
 from .utils.transfer import device_put
 
 __all__ = ["R2C", "C2C"]
-
-DEALIAS = (None, "2/3-rule", "3/2-rule")
 
 
 class _Slab3D(BaseFFT):
@@ -158,25 +156,10 @@ class _Slab3D(BaseFFT):
     def _masked(self, x):
         return x.masked_fill(~self._dealias_local(), 0)
 
-    def _local_coords(self):
-        """The 1-D physical coordinates (x0, x1, x2) of the mesh's axes."""
-        d = (self.L / self.N).astype(np.float64)
-        return tuple(torch.arange(int(n), dtype=self.float, device=self.device)
-                     * _as_working(di, self.float) for n, di in zip(self.N, d))
-
-    def get_local_mesh(self) -> torch.Tensor:
-        """(3, N0, N1, N2) physical coordinates."""
-        return torch.stack(torch.meshgrid(*self._local_coords(),
-                                          indexing="ij"))
-
     # -- routes ------------------------------------------------------------------
 
     def _kernel_ok(self, dealias) -> bool:
         raise NotImplementedError
-
-    def _check_dealias(self, dealias):
-        if dealias not in DEALIAS:
-            raise ValueError(f"unknown dealias={dealias!r}")
 
     def _fwd_local(self, u, dealias):
         if not self._kernel_ok(dealias):
@@ -507,9 +490,3 @@ class C2C(_Slab3D):
 
     def _pad_last(self, x):
         return pad_full_axis(x, -1, int(self.M[2]))
-
-
-def _as_working(value: float, dtype: torch.dtype) -> float:
-    """``value`` rounded to ``dtype``, as the reference's
-    ``np.asarray(...).astype(FFT.float)`` constants are."""
-    return float(torch.tensor(value, dtype=torch.float64).to(dtype))

@@ -45,12 +45,15 @@ def to_numpy(x) -> np.ndarray:
 
 def state_from_reference(U_hat_np, FFT) -> torch.Tensor:
     """The JAX solver's complex spectral state, a numpy ``(C,) +
-    FFT.global_complex_shape()`` array of FFT's complex dtype, as the port's
-    tensor on ``FFT.device``."""
+    FFT.global_complex_shape()`` array of FFT's complex dtype (a 2D FFT's
+    state, NS2D's ω̂, has no component axis: ``FFT.global_complex_shape()``
+    itself), as the port's tensor on ``FFT.device``."""
     U = np.asarray(U_hat_np)
     want = tuple(FFT.global_complex_shape())
-    if U.ndim != 4 or tuple(U.shape[1:]) != want:
-        raise ValueError(f"state shape {U.shape} is not (C,) + {want}")
+    lead = (U.shape[0],) if len(want) == 3 and U.ndim == 4 else ()
+    if tuple(U.shape) != lead + want or (len(want) == 3 and not lead):
+        raise ValueError(f"state shape {U.shape} is not "
+                         f"{'(C,) + ' if len(want) == 3 else ''}{want}")
     if _NP_TO_TORCH.get(U.dtype) != FFT.complex:
         raise TypeError(f"state dtype {U.dtype} does not match {FFT.complex}")
     return device_put(U, FFT.complex, FFT.device)
@@ -59,15 +62,20 @@ def state_from_reference(U_hat_np, FFT) -> torch.Tensor:
 def packed_state_from_reference(pair, FFT) -> torch.Tensor:
     """The JAX solver's packed state, a numpy float32 pair ``(Ur, Ui)`` of
     shape (C, N0, N1, N2/2) each, as the port's packed state: one
-    (2, C, N0, N1, N2/2) tensor on ``FFT.device``.  The pair must be in
+    (2, C, N0, N1, N2/2) tensor on ``FFT.device``.  The 3D pair must be in
     natural lane order (the reference's zdif order at N2 >= 512 is undone
-    by the caller with ``zdif_iperm``)."""
+    by the caller with ``zdif_iperm``).  For a 2D FFT (NS2D's packed
+    layout) the pair is (N0, N1/2) each and the tensor (2, N0, N1/2), in
+    the lane order both packages' NS2D keep (zdif order at N1 ∈ {512, 768,
+    1024})."""
     ur, ui = (np.asarray(a) for a in pair)
     N = [int(n) for n in FFT.N]
-    want = (N[0], N[1], N[2] // 2)
-    if ur.shape != ui.shape or ur.ndim != 4 or tuple(ur.shape[1:]) != want:
+    want = tuple(N[:-1]) + (N[-1] // 2,)
+    lead = ur.shape[:1] if len(N) == 3 and ur.ndim == 4 else ()
+    if (ur.shape != ui.shape or tuple(ur.shape) != tuple(lead) + want
+            or (len(N) == 3 and not lead)):
         raise ValueError(f"packed pair shapes {ur.shape}, {ui.shape} are not "
-                         f"(C,) + {want}")
+                         f"{'(C,) + ' if len(N) == 3 else ''}{want}")
     if ur.dtype != np.float32 or ui.dtype != np.float32:
         raise TypeError(f"packed pair dtypes {ur.dtype}, {ui.dtype}: float32 "
                         f"expected")

@@ -2,10 +2,13 @@
 """Time and profile the PyTorch/CUDA port's RK4 steps on one NVIDIA GPU,
 their configurations side by side: NS3D's ``complex`` and ``packed`` (the
 2/3 rule in each spectral layout) and ``padded`` (the complex layout with
-the 3/2 rule), and the packed steps of the solver family, ``vv``, ``mhd``
-and ``boussinesq`` (2/3 rule).
+the 3/2 rule), the packed steps of the solver family, ``vv``, ``mhd``
+and ``boussinesq`` (2/3 rule), and the 2D vorticity step, ``ns2d`` (the
+packed layout, rows 17–18 at N1 = 1024) and ``ns2d_complex`` (2/3 rule),
+at ``--n2d``².
 
-    python3 profile_step.py [--n 256] [--steps 5] [--configs packed,vv]
+    python3 profile_step.py [--n 256] [--n2d 1024] [--steps 5]
+                            [--configs packed,vv,ns2d]
 
 1. CUDA-event ms per step, ``--steps`` steps a sample, the configurations
    in turns (in order, reversed, in order again) after one warm-up step
@@ -39,8 +42,11 @@ CONFIGS = {  # name: (model, spectral_layout, dealias, initial state)
     "mhd": ("MHD3D", "packed", "2/3-rule", "taylor_green_mhd"),
     "boussinesq": ("Boussinesq3D", "packed", "2/3-rule",
                    "taylor_green_stratified"),
+    "ns2d": ("NavierStokes2D", "packed", "2/3-rule", "vortex_pair"),
+    "ns2d_complex": ("NavierStokes2D", "complex", "2/3-rule", "vortex_pair"),
 }
 NU = 0.000625
+NU2D, DT2D = 0.001, 0.001             # chip_smoke.py's NS2D step
 EXTRA = {"MHD3D": {"eta": NU}, "Boussinesq3D": {"kappa": NU}}
 HAND_WRITTEN = ("curl_ifft_x_kernel", "product_rfft_z_kernel",
                 "fft_x_epilogue_kernel", "packed_irfft_kernel",
@@ -82,6 +88,8 @@ def busy_us(kernels):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=256, help="grid size n³")
+    ap.add_argument("--n2d", type=int, default=1024,
+                    help="grid size n² of the 2D configurations")
     ap.add_argument("--steps", type=int, default=5,
                     help="steps per timed sample")
     ap.add_argument("--configs", default=",".join(CONFIGS),
@@ -99,7 +107,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     from torch.profiler import ProfilerActivity, profile
-    from mpifft4py_tpu_torch import models
+    from mpifft4py_tpu_torch import line, models
     from mpifft4py_tpu_torch.slab import R2C
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -107,10 +115,15 @@ def main():
                          text=True, check=True).stdout.strip(), flush=True)
     FFT = R2C(np.array([args.n] * 3), np.array([2 * np.pi] * 3), None,
               "single", device="cuda")
+    FFT2 = line.R2C(np.array([args.n2d] * 2), np.array([2 * np.pi] * 2),
+                    None, "single", device="cuda")
     sol, state = {}, {}
     for c in configs:
         model, layout, dealias, init = CONFIGS[c]
-        sol[c] = getattr(models, model)(FFT, nu=NU, dt=0.01,
+        two_d = model == "NavierStokes2D"
+        sol[c] = getattr(models, model)(FFT2 if two_d else FFT,
+                                        nu=NU2D if two_d else NU,
+                                        dt=DT2D if two_d else 0.01,
                                         spectral_layout=layout,
                                         dealias=dealias,
                                         **EXTRA.get(model, {}))
@@ -131,7 +144,7 @@ def main():
     res = {c: [] for c in configs}
     for c in order:
         res[c].append(event_ms(c))
-    print(f"{args.n}^3 RK4 event ms/step ({args.steps} steps a sample, "
+    print(f"{args.n}^3 ({args.n2d}^2 for ns2d) RK4 event ms/step ({args.steps} steps a sample, "
           f"in turns {' '.join(order)}): {json.dumps(res)}",
           flush=True)
 

@@ -28,11 +28,13 @@ from mpifft4py_tpu_torch import slab as tslab
 from mpifft4py_tpu_torch.models import Boussinesq3D as TBQ
 from mpifft4py_tpu_torch.models import NavierStokes3D as TNS
 from mpifft4py_tpu_torch.ops import fft3d as tp3
-from test_torch_packed import _close, _f32, _kvecs, _masks, _t
+from test_torch_packed import (_close, _f32, _kvecs,  # noqa: F401
+                               _masks, _one_torch_thread, _t)
 
 TAU = 2 * np.pi
 STEP_TOL = 2e-5
-N = (16, 16, 256)
+N = (16, 16, 256)       # the packed gate needs (N2/2) % 128 == 0
+NC = (16, 16, 32)       # the complex layout needs no such width
 KW = dict(nu=0.01, kappa=0.02, dt=0.01, Ri=0.7, integrator="RK4")
 
 
@@ -96,10 +98,19 @@ def test_fft_x_epilogue_buoyancy_matches_pallas(rng):
 
 # -- the solver ---------------------------------------------------------------------
 
-def _fft_pair(precision="single"):
+def _grid(J):
+    return tuple(int(n) for n in J.FFT.N)
+
+
+def _physical(S):
+    """The physical grid of a complex spectral stack (C, N0, N1, Nf)."""
+    return (S.shape[1], S.shape[2], 2 * (S.shape[3] - 1))
+
+
+def _fft_pair(precision="single", shape=N):
     L = np.array([TAU] * 3)
-    return (jslab.R2C(np.array(N), L, 1, precision),
-            tslab.R2C(np.array(N), L, None, precision, device="cpu"))
+    return (jslab.R2C(np.array(shape), L, 1, precision),
+            tslab.R2C(np.array(shape), L, None, precision, device="cpu"))
 
 
 def _state(J, seed=7):
@@ -110,8 +121,8 @@ def _state(J, seed=7):
     K = (k0[:, None, None], k1[None, :, None], k2[None, None, :])
     ksq = K[0] ** 2 + K[1] ** 2 + K[2] ** 2
     S = np.asarray(J.taylor_green_stratified())
-    p = np.fft.rfftn(np.random.default_rng(seed).standard_normal((4,) + N),
-                     axes=(1, 2, 3))
+    noise = np.random.default_rng(seed).standard_normal((4,) + _grid(J))
+    p = np.fft.rfftn(noise, axes=(1, 2, 3))
     d = (K[0] * p[0] + K[1] * p[1] + K[2] * p[2]) / np.where(ksq == 0, 1, ksq)
     p[:3] -= np.stack([K[0] * d, K[1] * d, K[2] * d])
     S = S + 0.05 * p / np.abs(p).max() * np.abs(S).max()
@@ -119,7 +130,7 @@ def _state(J, seed=7):
 
 
 def _energies64(S):
-    s = np.fft.irfftn(np.asarray(S).astype(np.complex128), s=N,
+    s = np.fft.irfftn(np.asarray(S).astype(np.complex128), s=_physical(S),
                       axes=(1, 2, 3))
     return (0.5 * np.mean(np.sum(s[:3] ** 2, axis=0)),
             0.5 * np.mean(s[3] ** 2))
@@ -127,7 +138,7 @@ def _energies64(S):
 
 @pytest.mark.parametrize("dealias", ["2/3-rule", "3/2-rule"])
 def test_complex_steps_match_reference(dealias):
-    Jf, Tf = _fft_pair()
+    Jf, Tf = _fft_pair(shape=NC)
     J, T = JBQ(Jf, dealias=dealias, **KW), TBQ(Tf, dealias=dealias, **KW)
     S = _state(J)
     sj, st = jnp.asarray(S), state_from_reference(S, Tf)
@@ -169,7 +180,7 @@ def test_initial_states_match_reference():
 @pytest.mark.parametrize("layout", ["complex", "packed"])
 def test_ri_zero_velocity_matches_ns(layout):
     """Ri = 0 decouples θ: the velocity evolves as NS3D's (2 RK4 steps)."""
-    _, Tf = _fft_pair()
+    _, Tf = _fft_pair(shape=NC if layout == "complex" else N)
     ns = TNS(Tf, nu=KW["nu"], dt=KW["dt"], spectral_layout=layout)
     bq = TBQ(Tf, spectral_layout=layout, **dict(KW, Ri=0.0))
     U = ns.taylor_green()
@@ -188,7 +199,7 @@ def test_rest_state_stays_at_rest(layout, precision, tol):
     """u = 0, θ = θ0 sin(z): the buoyancy is a pure gradient, the
     projection removes it, and θ decays by diffusion alone (its variance
     by e^{−2κt})."""
-    _, Tf = _fft_pair(precision)
+    _, Tf = _fft_pair(precision, NC if layout == "complex" else N)
     s = TBQ(Tf, spectral_layout=layout, **KW)
     S = s.rest_state()
     eu0, et0 = s.energies(S)

@@ -23,6 +23,7 @@ from mpifft4py_tpu import slab as jslab
 from mpifft4py_tpu.ops import pallas_fft3d as jp3
 from mpifft4py_tpu_torch import slab as tslab
 from mpifft4py_tpu_torch.ops import fft3d as tp3
+from test_torch_packed import _one_torch_thread  # noqa: F401
 
 TAU = 2 * np.pi
 N = (16, 16, 128)

@@ -22,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mpifft4py_tpu.ops import pallas_fft3d as jp3
 from mpifft4py_tpu_torch.ops import fft3d as tp3
+from test_torch_packed import _one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 

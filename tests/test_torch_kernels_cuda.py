@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from mpifft4py_tpu_torch.models import (MHD3D, Boussinesq3D, NavierStokes3D,
-                                        VorticityVelocity3D)
+from mpifft4py_tpu_torch.line import R2C as LineR2C
+from mpifft4py_tpu_torch.models import (MHD3D, Boussinesq3D, NavierStokes2D,
+                                        NavierStokes3D, VorticityVelocity3D)
 from mpifft4py_tpu_torch.ops import fft3d as p3
+from mpifft4py_tpu_torch.ops import zdif as zd
 from mpifft4py_tpu_torch.slab import C2C, R2C
 
 pytestmark = pytest.mark.cuda
@@ -318,3 +320,69 @@ def test_padded_r2c_on_the_card_matches_torch_route(cuda):
     back = FFT.fftn(FFT.ifftn(fu, dealias="3/2-rule"), dealias="3/2-rule")
     torch.cuda.synchronize()
     assert float((back - fu).abs().max()) < 1e-6 * float(fu.abs().max())
+
+
+# rows 17-18, the DIF lane order: n = 512 (RB = 16), 768 (h = 384, the
+# radix-3 stage, RB = 10: 7 and 25 rows end in a partial block) and 1024
+# (RB = 8), the (4, 1024, 512) stack of NS2D's batched inverse among them
+ZDIF = [(16, 512), (7, 768), (2, 25, 768), (1024, 1024), (4, 1024, 1024),
+        (3, 512)]
+
+
+@pytest.mark.parametrize("shape", ZDIF)
+def test_zdif_kernels_match_twin(cuda, shape):
+    n = shape[-1]
+    x = _f32(shape, cuda)
+    before = dict(p3.LAUNCHES)
+    got = zd.rfft_last_zdif(x)
+    assert p3.LAUNCHES["packed_rfft_last_zdif"] == \
+        before["packed_rfft_last_zdif"] + 1
+    _close(got, zd.rfft_last_zdif_ref(x))
+    back = zd.irfft_last_zdif(*got, n)
+    assert p3.LAUNCHES["packed_irfft_last_zdif"] == \
+        before["packed_irfft_last_zdif"] + 1
+    _close(back, x)
+    yr, yi = _f32(got[0].shape, cuda, 1), _f32(got[0].shape, cuda, 2)
+    _close(zd.irfft_last_zdif(yr, yi, n), zd.irfft_last_zdif_ref(yr, yi, n))
+
+
+@pytest.mark.parametrize("n", [512, 768, 1024])
+def test_zdif_forward_is_row_4_permuted(cuda, n):
+    x = _f32((64, n), cuda)
+    perm = torch.from_numpy(zd.zdif_perm(n)).to(cuda)
+    nr, ni = p3.rfft_last_packed(x)
+    _close(p3.rfft_last_packed(x, dif=True), (nr[:, perm], ni[:, perm]))
+    _close(p3.irfft_last_packed(nr[:, perm], ni[:, perm], n, dif=True),
+           p3.irfft_last_packed(nr, ni, n))
+
+
+def test_zdif_launcher_refuses_outside_the_gate(cuda):
+    from mpifft4py_tpu_torch.ops import _build
+    x = _f32((4, 256), cuda)
+    y = torch.empty((4, 128), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    rc = _build.load().packed_rfft_zdif_launch(
+        x.data_ptr(), y.data_ptr(), y.data_ptr(), None, None, 4, 256, stream)
+    assert rc != 0
+
+
+@pytest.mark.parametrize("n1", [256, 512, 768])
+def test_ns2d_packed_step_on_the_card_matches_complex(cuda, n1):
+    FFT = LineR2C(np.array([64, n1]), np.array([2 * np.pi] * 2), None,
+                  "single", device=cuda)
+    c = NavierStokes2D(FFT, nu=0.01, dt=0.001)
+    p = NavierStokes2D(FFT, nu=0.01, dt=0.001, spectral_layout="packed")
+    assert p._dif == (n1 >= 512)
+    Wc, Wp = c.vortex_pair(), p.vortex_pair()
+    before = dict(p3.LAUNCHES)
+    for _ in range(2):
+        Wc, Wp = c.step(Wc), p.step(Wp)
+    torch.cuda.synchronize()
+    z = "_zdif" if p._dif else ""
+    assert p3.LAUNCHES["packed_irfft_last" + z] - \
+        before["packed_irfft_last" + z] == 8
+    assert p3.LAUNCHES["packed_rfft_last" + z] - \
+        before["packed_rfft_last" + z] == 8
+    err = float(torch.linalg.vector_norm(p.unpack_state(Wp) - Wc)
+                / torch.linalg.vector_norm(Wc))
+    assert err <= 1e-5

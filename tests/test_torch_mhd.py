@@ -26,11 +26,13 @@ from mpifft4py_tpu_torch import slab as tslab
 from mpifft4py_tpu_torch.models import MHD3D as TMHD
 from mpifft4py_tpu_torch.models import NavierStokes3D as TNS
 from mpifft4py_tpu_torch.ops import fft3d as tp3
-from test_torch_packed import _close, _f32, _t
+from test_torch_packed import (_close, _f32,  # noqa: F401
+                               _one_torch_thread, _t)
 
 TAU = 2 * np.pi
 STEP_TOL = 2e-5
-N = (16, 16, 256)
+N = (16, 16, 256)       # the packed gate needs (N2/2) % 128 == 0
+NC = (16, 16, 32)       # the complex layout needs no such width
 KW = dict(nu=0.01, eta=0.02, dt=0.01, integrator="RK4")
 
 
@@ -60,10 +62,19 @@ def test_cross_rfft_z_matches_z_only_pallas(rng, two):
 
 # -- the solver ---------------------------------------------------------------------
 
-def _fft_pair(precision="single"):
+def _grid(J):
+    return tuple(int(n) for n in J.FFT.N)
+
+
+def _physical(S):
+    """The physical grid of a complex spectral stack (C, N0, N1, Nf)."""
+    return (S.shape[1], S.shape[2], 2 * (S.shape[3] - 1))
+
+
+def _fft_pair(precision="single", shape=N):
     L = np.array([TAU] * 3)
-    return (jslab.R2C(np.array(N), L, 1, precision),
-            tslab.R2C(np.array(N), L, None, precision, device="cpu"))
+    return (jslab.R2C(np.array(shape), L, 1, precision),
+            tslab.R2C(np.array(shape), L, None, precision, device="cpu"))
 
 
 def _k(J):
@@ -73,7 +84,7 @@ def _k(J):
 
 def _energies64(S):
     """(0.5 <|u|²>, 0.5 <|b|²>) in float64: the diagnostics' oracle."""
-    s = np.fft.irfftn(np.asarray(S).astype(np.complex128), s=N,
+    s = np.fft.irfftn(np.asarray(S).astype(np.complex128), s=_physical(S),
                       axes=(1, 2, 3))
     return (0.5 * np.mean(np.sum(s[:3] ** 2, axis=0)),
             0.5 * np.mean(np.sum(s[3:] ** 2, axis=0)))
@@ -85,8 +96,8 @@ def _state(J, seed=7):
     K = _k(J)
     ksq = K[0] ** 2 + K[1] ** 2 + K[2] ** 2
     S = np.asarray(J.taylor_green_mhd())
-    p = np.fft.rfftn(np.random.default_rng(seed).standard_normal((6,) + N),
-                     axes=(1, 2, 3))
+    noise = np.random.default_rng(seed).standard_normal((6,) + _grid(J))
+    p = np.fft.rfftn(noise, axes=(1, 2, 3))
     for f in (p[:3], p[3:]):
         d = (K[0] * f[0] + K[1] * f[1] + K[2] * f[2]) / np.where(ksq == 0, 1,
                                                                 ksq)
@@ -97,7 +108,7 @@ def _state(J, seed=7):
 
 @pytest.mark.parametrize("dealias", ["2/3-rule", "3/2-rule"])
 def test_complex_steps_match_reference(dealias):
-    Jf, Tf = _fft_pair()
+    Jf, Tf = _fft_pair(shape=NC)
     J, T = JMHD(Jf, dealias=dealias, **KW), TMHD(Tf, dealias=dealias, **KW)
     S = _state(J)
     sj, st = jnp.asarray(S), state_from_reference(S, Tf)
@@ -135,7 +146,7 @@ def test_packed_steps_match_complex():
 @pytest.mark.parametrize("layout", ["complex", "packed"])
 def test_zero_field_reduces_to_ns(layout):
     """b = 0: the momentum is NS3D's and b stays 0 (2 RK4 steps)."""
-    _, Tf = _fft_pair()
+    _, Tf = _fft_pair(shape=NC if layout == "complex" else N)
     ns = TNS(Tf, nu=KW["nu"], dt=KW["dt"], spectral_layout=layout)
     mh = TMHD(Tf, spectral_layout=layout, **KW)
     U = ns.taylor_green()
@@ -154,7 +165,7 @@ def test_zero_field_reduces_to_ns(layout):
 def test_induction_stays_solenoidal(layout, precision, tol):
     """∇·b of the Taylor–Green seed field stays at round-off over 3 RK4
     steps: max |K·b̂| against max |K|·max |b̂|."""
-    _, Tf = _fft_pair(precision)
+    _, Tf = _fft_pair(precision, NC if layout == "complex" else N)
     s = TMHD(Tf, spectral_layout=layout, **KW)
     UB = s.taylor_green_mhd()
     e0 = sum(s.energies(UB))

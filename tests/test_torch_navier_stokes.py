@@ -21,6 +21,7 @@ from mpifft4py_tpu_torch import slab as tslab
 from mpifft4py_tpu_torch import state_from_reference
 from mpifft4py_tpu_torch.models import diagnostics as tdiag
 from mpifft4py_tpu_torch.models.navier_stokes import NavierStokes3D as TNS
+from test_torch_packed import _one_torch_thread  # noqa: F401
 
 TAU = 2 * np.pi
 N = (16, 16, 16)

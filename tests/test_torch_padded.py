@@ -33,6 +33,7 @@ from mpifft4py_tpu_torch import state_from_reference
 from mpifft4py_tpu_torch import slab as tslab
 from mpifft4py_tpu_torch.models.navier_stokes import NavierStokes3D as TNS
 from mpifft4py_tpu_torch.ops import fft3d as tp3
+from test_torch_packed import _one_torch_thread  # noqa: F401
 from test_nyquist_alias import _oracle_3d
 
 TAU = 2 * np.pi

@@ -15,6 +15,7 @@ from mpifft4py_tpu.utils import spectral as jsp
 from mpifft4py_tpu_torch import datatypes, work_arrays
 from mpifft4py_tpu_torch import slab as tslab
 from mpifft4py_tpu_torch.utils import spectral as tsp
+from test_torch_packed import _one_torch_thread  # noqa: F401
 
 TAU = 2 * np.pi
 TOL = {"single": 1e-5, "double": 1e-12}

@@ -28,11 +28,13 @@ from mpifft4py_tpu_torch import slab as tslab
 from mpifft4py_tpu_torch.models import NavierStokes3D as TNS
 from mpifft4py_tpu_torch.models import VorticityVelocity3D as TVV
 from mpifft4py_tpu_torch.ops import fft3d as tp3
-from test_torch_packed import _close, _f32, _kvecs, _masks, _t
+from test_torch_packed import (_close, _f32, _kvecs,  # noqa: F401
+                               _masks, _one_torch_thread, _t)
 
 TAU = 2 * np.pi
 STEP_TOL = 2e-5
-N = (16, 16, 256)
+N = (16, 16, 256)       # the packed gate needs (N2/2) % 128 == 0
+NC = (16, 16, 32)       # the complex layout needs no such width
 KW = dict(nu=0.01, dt=0.01, integrator="RK4")
 
 
@@ -70,10 +72,19 @@ def test_fft_x_epilogue_curl_matches_pallas(rng):
 
 # -- the solver ---------------------------------------------------------------------
 
-def _fft_pair(precision="single"):
+def _grid(J):
+    return tuple(int(n) for n in J.FFT.N)
+
+
+def _physical(S):
+    """The physical grid of a complex spectral stack (C, N0, N1, Nf)."""
+    return (S.shape[1], S.shape[2], 2 * (S.shape[3] - 1))
+
+
+def _fft_pair(precision="single", shape=N):
     L = np.array([TAU] * 3)
-    return (jslab.R2C(np.array(N), L, 1, precision),
-            tslab.R2C(np.array(N), L, None, precision, device="cpu"))
+    return (jslab.R2C(np.array(shape), L, 1, precision),
+            tslab.R2C(np.array(shape), L, None, precision, device="cpu"))
 
 
 def _energy64(V_hat, K=None):
@@ -87,7 +98,7 @@ def _energy64(V_hat, K=None):
         V = 1j * np.stack([K[1] * V[2] - K[2] * V[1], K[2] * V[0] - K[0] * V[2],
                            K[0] * V[1] - K[1] * V[0]]) / np.where(ksq == 0, 1,
                                                                   ksq)
-    v = np.fft.irfftn(V, s=N, axes=(1, 2, 3))
+    v = np.fft.irfftn(V, s=_physical(V), axes=(1, 2, 3))
     return 0.5 * np.mean(np.sum(v * v, axis=0))
 
 
@@ -102,8 +113,8 @@ def _state(J, seed=7):
     complex64 numpy."""
     K = _k(J)
     W = np.asarray(J.taylor_green())
-    p = np.fft.rfftn(np.random.default_rng(seed).standard_normal((3,) + N),
-                     axes=(1, 2, 3))
+    noise = np.random.default_rng(seed).standard_normal((3,) + _grid(J))
+    p = np.fft.rfftn(noise, axes=(1, 2, 3))
     p = 1j * np.stack([K[1] * p[2] - K[2] * p[1], K[2] * p[0] - K[0] * p[2],
                        K[0] * p[1] - K[1] * p[0]])
     W = W + 0.05 * p / np.abs(p).max() * np.abs(W).max()
@@ -112,7 +123,7 @@ def _state(J, seed=7):
 
 @pytest.mark.parametrize("dealias", ["2/3-rule", "3/2-rule"])
 def test_complex_steps_match_reference(dealias):
-    Jf, Tf = _fft_pair()
+    Jf, Tf = _fft_pair(shape=NC)
     J, T = JVV(Jf, dealias=dealias, **KW), TVV(Tf, dealias=dealias, **KW)
     W = _state(J)
     sj, st = jnp.asarray(W), state_from_reference(W, Tf)
@@ -163,7 +174,7 @@ def test_vv_is_the_curl_of_ns(layout):
     solvers of the port, 2 RK4 steps from Taylor–Green (float64 for the
     complex layout, float32 for the packed)."""
     precision = "double" if layout == "complex" else "single"
-    _, Tf = _fft_pair(precision)
+    _, Tf = _fft_pair(precision, NC if layout == "complex" else N)
     kw = dict(KW, spectral_layout=layout)
     ns, vv = TNS(Tf, **kw), TVV(Tf, **kw)
     U, W = ns.taylor_green(), vv.taylor_green()
