@@ -37,14 +37,33 @@ Phases, each checked; any failed check makes the exit code non-zero:
    ``fft_axis``, their exact launches a step checked) and the complex
    layout at 1024² and 2048², each against the float64 complex run, the
    packed state against the complex one, the enstrophy decaying, with ms
-   per step (host clock and CUDA events) and peak step memory.
+   per step (host clock and CUDA events) and peak step memory; then the
+   same at 1024 x 2048 in both layouts (natural lanes, h = 1024);
+9. ``serialFFT`` (``mpifft4py_tpu_torch.rfftn``/``irfftn``) at 640³ float32,
+   through the hand-written chain (radix 5 on every axis): against float64
+   ``torch.fft.rfftn``, the round trip, the launches, the time beside
+   ``torch.fft``'s;
+10. the dense tier (rows 19–22, ``ops.dense``) at 256³, composed as
+    benchmarks/pallas_tuning.py composes it: ``rfft_last`` then
+    ``fft_axis`` on y and x against float64 ``rfftn``, row 20 on the last
+    axis of that spectrum, the round trip, the chain's time;
+11. packed NS3D at (320, 320, 1280) (radix 5 on x, y and the packed
+    z): 5 RK4 steps, the hand-written launches a step equal to the 256³
+    packed step's, the energy decaying, the state against the complex
+    layout's, ms per step and peak memory.
+
+Before the main path, the envelope sweep holds the widened plans against
+their twins (1e-5) and in round trips through the kernels (1e-6):
+``fft_axis`` and ``fft_last`` at every ``supported_c2c`` n in 8..1024, the
+packed r2c/c2r at every even n in 16..2048, and times them at n = 40, 112,
+640, 1016 (c2c) and 2042 (r2c) beside n = 1024 and 2048.
 
 Phase 3 also runs the 3/2-rule transforms at 256³ (the padded round trip,
 the forward of a product field against a float64 alias-sum oracle) and
 ``slab.C2C`` (forward against float64 ``torch.fft.fftn``, round trip, and
 the 3/2-rule round trip and forward, the latter against float64 ``fftn``
 on the 384³ grid truncated to 256³).
-Phases 3–8 are the main path: each runs with the kernels' launch counters
+Phases 3–11 are the main path: each runs with the kernels' launch counters
 set to 0 just before it and read just after, and phases 4–8 also read them
 around each of their steps.  Phase 2 also holds each template variant of
 the fused kernels (Biot–Savart curl, cross2 and mul products, the curl,
@@ -52,7 +71,8 @@ div and buoyancy epilogues) against its twin at the 256³ shapes of the
 solvers' right-hand sides, and rows 17–18 (the DIF lane order of the
 packed 2D layout) at n = 512, 768 and 1024 on the 1024² field and the
 (4, 1024, n/2) stack of NS2D's batched inverse, against their twins (and
-row 17 against row 4 permuted, and a round trip) at 1e-6.  Each kernel's
+row 17 against row 4 permuted, and a round trip) at 1e-6, and rows 19–22
+at the 256³ chain's shapes and the full-length r2c/c2r at odd n.  Each kernel's
 time is its median beside its plain twin's and, where one exists, one ``torch.fft`` call's computing the
 same function, with the bound of its bytes at 3.35 TB/s and of its FFT
 flops (5 n log2 n a complex transform, half that a real one) at 67 TFLOP/s
@@ -74,6 +94,7 @@ TAU = 2 * np.pi
 SEED = 0
 
 PALLAS = "mpifft4py_tpu/ops/pallas_fft3d.py"
+DENSE = "mpifft4py_tpu/ops/pallas_fft.py"
 CSRC = "mpifft4py_tpu_torch/ops/csrc"
 KERNELS = {
     # name: (source, Pallas kernel(s) it replaces, with their row in PERF.md)
@@ -108,6 +129,14 @@ KERNELS = {
     "packed_irfft_last_zdif": (f"{CSRC}/packed_rfft.cu",
                                "mpifft4py_tpu/ops/pallas_zdif.py:415 "
                                "(row 18)"),
+    "dense_fft_axis": (f"{CSRC}/fft_axis.cu",
+                       f"{DENSE}:97 (row 19, _fft_axis_pallas)"),
+    "dense_fft_last": (f"{CSRC}/fft_last.cu",
+                       f"{DENSE}:175 (row 20, _fft_last_pallas)"),
+    "dense_rfft_last": (f"{CSRC}/planar_rfft.cu",
+                        f"{DENSE}:215 (row 21, rfft_last)"),
+    "dense_irfft_last": (f"{CSRC}/planar_rfft.cu",
+                         f"{DENSE}:266 (row 22, irfft_last)"),
 }
 NU, DT = 0.000625, 0.01
 TRANSFORM_KERNELS = ("fft_axis", "packed_rfft_last", "packed_irfft_last")
@@ -131,6 +160,14 @@ FAMILY_RHS = {
 # (4, N0, h) inverse (x, then z) and the forward (z, then x)
 NS2D_RHS = {"packed_rfft_last_zdif": 1, "packed_irfft_last_zdif": 1,
             "fft_axis": 2}
+# the same at N1 outside the DIF gate (natural lane order)
+NS2D_RHS_NATURAL = {"packed_rfft_last": 1, "packed_irfft_last": 1,
+                    "fft_axis": 2}
+# the widened plans' timed lengths: c2c (radix 5, radix 7, 2^7·5, a direct
+# 127-point stage) and the packed r2c with a direct 1021-point stage
+SWEEP_TIMED_C2C = (40, 112, 640, 1016)
+SWEEP_TIMED_R2C = (2042,)
+WIDE = (320, 320, 1280)       # packed NS3D: radix 5 on x, y and h = 640
 NU2D, DT2D = 0.001, 0.001
 Z0_VORTEX_PAIR = 0.05 / (8 * np.pi)  # 0.5 <ω²> of the two Gaussians
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -190,7 +227,7 @@ def packed_vectors(n):
             + spectral.packed_dealias_masks(N, "cuda"))
 
 
-def kernel_phase(torch, p3, zd, rng):
+def kernel_phase(torch, p3, zd, dn, rng):
     """Each kernel against its twin; returns {name: its JSON numbers}."""
     def cu(shape):
         return torch.from_numpy(
@@ -371,6 +408,33 @@ def kernel_phase(torch, p3, zd, rng):
     f2 = f
     s4c = torch.complex(cu((4, 1024, 513)), cu((4, 1024, 513)))
 
+    # rows 19-22, the dense tier, at the shapes of the 256^3 chain (the
+    # composition of benchmarks/pallas_tuning.py): the r2c of (256, 256,
+    # 256), c2c along axes 0, 1 and 2 of the (256, 256, 129) spectrum
+    # (129 = 3·43: a direct 43-point stage), the c2r back; then the
+    # full-length r2c/c2r at odd n
+    ud = cu((256, 256, 256))
+    Xd = torch.complex(cu((256, 256, 129)), cu((256, 256, 129)))
+    compare("dense_rfft_last", "(256, 256, 256)", dn.rfft_last(ud),
+            dn.rfft_last_ref(ud))
+    compare("dense_irfft_last", "(256, 256, 129) -> 256",
+            dn.irfft_last(Xd, 256), dn.irfft_last_ref(Xd, 256))
+    for axis, name in ((0, "dense_fft_axis"), (1, "dense_fft_axis"),
+                       (2, "dense_fft_last")):
+        for inv in (False, True):
+            compare(name, f"(256, 256, 129) axis {axis} inverse={inv}",
+                    dn.fft_axis(Xd, axis, inv), dn.fft_axis_ref(Xd, axis, inv))
+    for n in (15, 41, 127, 1023):
+        x = cu((64, n))
+        X = dn.rfft_last(x)
+        compare("dense_rfft_last", f"odd n={n} (64, {n})", X,
+                dn.rfft_last_ref(x))
+        compare("dense_irfft_last", f"odd n={n} round trip",
+                dn.irfft_last(X, n), x, 1e-6)
+        Y = torch.complex(cu((64, n // 2 + 1)), cu((64, n // 2 + 1)))
+        compare("dense_irfft_last", f"odd n={n} (64, {n // 2 + 1})",
+                dn.irfft_last(Y, n), dn.irfft_last_ref(Y, n))
+
     # times at the main path's shapes: kernel, twin and the one torch.fft
     # call computing the same function (None for the fused kernels), in
     # turns, with the bound of the call's bytes and flops
@@ -444,6 +508,25 @@ def kernel_phase(torch, p3, zd, rng):
             lambda: zd.irfft_last_zdif_ref(sr4, si4, 1024),
             lambda: torch.fft.irfft(s4c, n=1024, dim=-1),
             2 * nbytes(sr4, si4), fft_flops(2 * sr4.numel(), 1024, True)),
+        # the dense 256^3 chain: y on the spectrum (x alike), the last axis
+        # of the spectrum, the r2c and the c2r
+        "dense_fft_axis": (lambda: dn.fft_axis(Xd, 1),
+                           lambda: dn.fft_axis_ref(Xd, 1),
+                           lambda: torch.fft.fft(Xd, dim=1), 2 * nbytes(Xd),
+                           fft_flops(Xd.numel(), 256)),
+        "dense_fft_last": (lambda: dn.fft_axis(Xd, 2),
+                           lambda: dn.fft_axis_ref(Xd, 2),
+                           lambda: torch.fft.fft(Xd, dim=2), 2 * nbytes(Xd),
+                           fft_flops(Xd.numel(), 129)),
+        "dense_rfft_last": (lambda: dn.rfft_last(ud),
+                            lambda: dn.rfft_last_ref(ud),
+                            lambda: torch.fft.rfft(ud, dim=-1),
+                            nbytes(ud, Xd), fft_flops(ud.numel(), 256, True)),
+        "dense_irfft_last": (lambda: dn.irfft_last(Xd, 256),
+                             lambda: dn.irfft_last_ref(Xd, 256),
+                             lambda: torch.fft.irfft(Xd, n=256, dim=-1),
+                             nbytes(ud, Xd),
+                             fft_flops(ud.numel(), 256, True)),
     }
     out = {}
     for name, (kern, plain, lib, nb, fl) in cases.items():
@@ -460,6 +543,96 @@ def kernel_phase(torch, p3, zd, rng):
               f"{b_ms:.4f} ms ({b_by}: {nb / 1e6:.1f} MB, "
               f"{fl / 1e9:.2f} GFLOP)", flush=True)
     return out
+
+
+def envelope_phase(torch, p3):
+    """The widened plans against their twins: ``fft_axis`` and
+    ``fft_last`` at every ``supported_c2c`` n in 8..1024, the packed r2c/c2r
+    at every even n in 16..2048, each forward against its twin (1e-5
+    relative, as every kernel) and in a round trip through the kernels
+    (1e-6 relative); the worst of each printed; then times at the lengths
+    of SWEEP_TIMED_* (radix 5, radix 7, a direct 127- and 1021-point stage)
+    beside the powers of two next to them."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def cu(shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    worst = {}
+
+    def note(key, got, ref, tol, what):
+        errs = [rel_err(torch, a, b) for a, b in zip(got, ref)]
+        worst[key] = max(worst.get(key, (0.0, 0))[0], max(errs)), \
+            worst.get(key, (0.0, 0))[1] + 1
+        if max(errs) > tol:
+            check(False, f"sweep {what}: rel err {max(errs):.3e} (limit "
+                         f"{tol:g})")
+
+    for n in range(8, 1025):
+        if not p3.supported_c2c(n):
+            continue
+        for name, shape, axis in (("fft_axis", (2, n, 16), 1),
+                                  ("fft_last", (16, n), 1)):
+            xr, xi = cu(shape), cu(shape)
+            fn = (p3.fft_axis_planar if name == "fft_axis" else
+                  lambda a, b, ax, inv: p3.fft_last_planar_c2c(a, b, inv))
+            twin = (p3.fft_axis_planar_ref if name == "fft_axis" else
+                    lambda a, b, ax, inv: p3.fft_last_planar_c2c_ref(a, b,
+                                                                     inv))
+            y = fn(xr, xi, axis, False)
+            note(f"{name} vs twin", y, twin(xr, xi, axis, False), 1e-5,
+                 f"{name} n={n}")
+            note(f"{name} round trip", fn(*y, axis, True), (xr, xi), 1e-6,
+                 f"{name} n={n} round trip")
+    for n in range(16, 2049, 2):
+        x = cu((8, n))
+        y = p3.rfft_last_packed(x)
+        ref = p3.rfft_last_packed_ref(x)
+        note("packed_rfft_last vs twin", y, ref, 1e-5, f"rfft n={n}")
+        note("packed_irfft_last vs twin", (p3.irfft_last_packed(*ref, n),),
+             (p3.irfft_last_packed_ref(*ref, n),), 1e-5, f"irfft n={n}")
+        note("packed r2c/c2r round trip", (p3.irfft_last_packed(*y, n),),
+             (x,), 1e-6, f"packed n={n} round trip")
+    for key, (err, count) in worst.items():
+        print(f"sweep {key}: worst rel err {err:.3e} over {count} lengths",
+              flush=True)
+    check(len(worst) == 7 and all(c > 500 for _, c in worst.values()),
+          f"sweep covered {sum(c for _, c in worst.values())} (kernel, "
+          f"length) pairs")
+
+    for n in sorted(set(SWEEP_TIMED_C2C) | {1024}):
+        xr, xi = cu((n, 32768)), cu((n, 32768))
+        z = torch.complex(xr, xi)
+        nb, fl = 4 * nbytes(xr), fft_flops(xr.numel(), n)
+        b_ms, b_by = bound(nb, fl)
+        for name, kern, lib in (
+                ("fft_axis", lambda: p3.fft_axis_planar(xr, xi, 0),
+                 lambda: torch.fft.fft(z, dim=0)),
+                ("fft_last", lambda: p3.fft_last_planar_c2c(
+                    xr.view(32768, n), xi.view(32768, n)),
+                 lambda: torch.fft.fft(z.view(32768, n), dim=1))):
+            k1, l1 = median_ms(torch, kern, 10), median_ms(torch, lib, 10)
+            k2 = median_ms(torch, kern, 10)
+            print(f"time sweep {name} n={n} ({n} x 32768 points): kernel "
+                  f"{k1:.4f} / {k2:.4f} ms, torch.fft {l1:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del xr, xi, z
+    for n in sorted(set(SWEEP_TIMED_R2C) | {2048}):
+        x = cu((16384, n))
+        yr, yi = p3.rfft_last_packed(x)
+        z = torch.fft.rfft(x, dim=-1)
+        b_ms, b_by = bound(2 * nbytes(x), fft_flops(x.numel(), n, True))
+        for name, kern, lib in (
+                ("packed_rfft_last", lambda: p3.rfft_last_packed(x),
+                 lambda: torch.fft.rfft(x, dim=-1)),
+                ("packed_irfft_last", lambda: p3.irfft_last_packed(yr, yi, n),
+                 lambda: torch.fft.irfft(z, n=n, dim=-1))):
+            k1, l1 = median_ms(torch, kern, 10), median_ms(torch, lib, 10)
+            k2 = median_ms(torch, kern, 10)
+            print(f"time sweep {name} n={n} (16384 rows): kernel {k1:.4f} / "
+                  f"{k2:.4f} ms, torch.fft {l1:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+        del x, yr, yi, z
 
 
 def transform_phase(torch, p3, R2C, rng):
@@ -690,6 +863,7 @@ def packed_solver_phase(torch, p3, R2C, NavierStokes3D, Uc, Ud, ms_c, peak_c):
           f"synchronised); peak step memory above the resident: packed "
           f"{peak / 2**30:.3f} GiB, complex {peak_c / 2**30:.3f} GiB",
           flush=True)
+    return steps
 
 
 def padded_solver_phase(torch, p3, R2C, NavierStokes3D, ms_c, peak_c):
@@ -842,24 +1016,29 @@ def event_ms_per_step(torch, s, U, steps=5):
 
 
 def ns2d_phase(torch, p3, LineR2C, NavierStokes2D):
-    """NS2D RK4 from the vortex pair, 5 steps: packed 1024², complex 1024²
-    and 2048² in float32, each against the float64 complex run; the
-    packed step's exact launches."""
-    def solver(n, precision, layout):
-        FFT = LineR2C(np.array([n, n]), np.array([TAU] * 2), None, precision,
+    """NS2D RK4 from the vortex pair, 5 steps: packed 1024² (DIF lanes)
+    and 1024 x 2048 (natural lanes, h = 1024), complex 1024², 2048² and
+    1024 x 2048 in float32, each against the float64 complex run; the
+    packed steps' exact launches."""
+    def solver(shape, precision, layout):
+        FFT = LineR2C(np.array(shape), np.array([TAU] * 2), None, precision,
                       device="cuda")
         return NavierStokes2D(FFT, nu=NU2D, dt=DT2D, spectral_layout=layout)
 
     times = {}
-    for n, layouts in ((1024, ("packed", "complex")), (2048, ("complex",))):
-        d = solver(n, "double", "complex")
+    for shape, layouts in (((1024, 1024), ("packed", "complex")),
+                           ((2048, 2048), ("complex",)),
+                           ((1024, 2048), ("packed", "complex"))):
+        n = "x".join(map(str, shape)) if shape[0] != shape[1] \
+            else f"{shape[0]}^2"
+        d = solver(shape, "double", "complex")
         W = d.vortex_pair()
         for _ in range(5):
             W = d.step(W)
         states = {}
         for layout in layouts:
-            s = solver(n, "single", layout)
-            label = f"NS2D {layout} {n}^2"
+            s = solver(shape, "single", layout)
+            label = f"NS2D {layout} {n}"
             S, _, ms, peak, steps = run_steps(
                 torch, p3, s, label, s.vortex_pair, s.enstrophy,
                 Z0_VORTEX_PAIR)
@@ -869,8 +1048,9 @@ def ns2d_phase(torch, p3, LineR2C, NavierStokes2D):
                   f"{ {k: v / 5 for k, v in steps.items() if v} }",
                   flush=True)
             if layout == "packed":
+                rhs = NS2D_RHS if s._dif else NS2D_RHS_NATURAL
                 for k, v in steps.items():
-                    want = 4 * 5 * NS2D_RHS.get(k, 0)
+                    want = 4 * 5 * rhs.get(k, 0)
                     check(v == want, f"{label} launched {k} {v} times in 5 "
                                      f"RK4 steps (4 x 5 x its count in one "
                                      f"right-hand side: {want})")
@@ -881,7 +1061,7 @@ def ns2d_phase(torch, p3, LineR2C, NavierStokes2D):
                                f"steps: rel L2 err {err:.3e}")
         if len(states) == 2:
             err = rel_l2(torch, states["packed"], states["complex"])
-            check(err <= 1e-5, f"NS2D {n}^2 packed state (unpacked) vs the "
+            check(err <= 1e-5, f"NS2D {n} packed state (unpacked) vs the "
                                f"complex one after 5 steps: rel L2 err "
                                f"{err:.3e}")
         del d, W, states
@@ -892,13 +1072,123 @@ def ns2d_phase(torch, p3, LineR2C, NavierStokes2D):
               f"{peak / 2**20:.2f} MiB above the resident", flush=True)
 
 
+def serial_phase(torch, p3, T):
+    """``serialFFT.rfftn``/``irfftn`` at 640³ float32 (radix 5 on every
+    axis: x, y = 640 and the half-length z h = 320) through the
+    hand-written chain: against float64 ``torch.fft.rfftn``, the round
+    trip, the launches, and the time beside ``torch.fft``'s."""
+    n = 640
+    shape = (n, n, n)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    u = torch.randn(shape, generator=g, device="cuda")
+    before = dict(p3.LAUNCHES)
+    fu = T.rfftn(u)
+    err = rel_err(torch, fu, torch.fft.rfftn(u.double()))
+    check(err <= 1e-5, f"serialFFT rfftn 640^3 vs float64 torch.fft.rfftn: "
+                       f"rel err {err:.3e}")
+    err = rel_err(torch, T.irfftn(fu, s=shape), u)
+    check(err < 1e-6, f"serialFFT irfftn(rfftn(u)) 640^3 round trip: rel "
+                      f"err {err:.3e}")
+    for k in TRANSFORM_KERNELS:
+        check(p3.LAUNCHES[k] > before[k],
+              f"serialFFT 640^3 launched {k}: {p3.LAUNCHES[k] - before[k]}")
+    k1 = median_ms(torch, lambda: T.irfftn(T.rfftn(u), s=shape), 10)
+    t1 = median_ms(torch, lambda: torch.fft.irfftn(torch.fft.rfftn(u),
+                                                   s=shape), 10)
+    t2 = median_ms(torch, lambda: torch.fft.irfftn(torch.fft.rfftn(u),
+                                                   s=shape), 10)
+    k2 = median_ms(torch, lambda: T.irfftn(T.rfftn(u), s=shape), 10)
+    print(f"time serialFFT 640^3 irfftn(rfftn(u)): {k1:.4f} / {k2:.4f} ms; "
+          f"torch.fft irfftn(rfftn(u)) float32: {t1:.4f} / {t2:.4f} ms",
+          flush=True)
+
+
+def dense_phase(torch, p3, dn):
+    """The dense tier at 256³, composed as benchmarks/pallas_tuning.py
+    composes it: ``rfft_last`` -> ``fft_axis(1)`` -> ``fft_axis(0)`` against
+    float64 ``rfftn``, row 20 (``fft_axis`` on the last axis of that
+    spectrum) against float64 ``fft``, and back to the 1e-6 round trip;
+    the chain's time beside ``torch.fft``'s."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    u = torch.randn((256, 256, 256), generator=g, device="cuda")
+
+    def fwd(x):
+        return dn.fft_axis(dn.fft_axis(dn.rfft_last(x), 1), 0)
+
+    def bwd(X):
+        return dn.irfft_last(dn.fft_axis(dn.fft_axis(X, 0, True), 1, True),
+                             256)
+
+    X = fwd(u)
+    err = rel_err(torch, X, torch.fft.rfftn(u.double()))
+    check(err <= 1e-5, f"dense 256^3 chain vs float64 rfftn: rel err "
+                       f"{err:.3e}")
+    err = rel_err(torch, dn.fft_axis(X, 2),
+                  torch.fft.fft(X.to(torch.complex128), dim=2))
+    check(err <= 1e-5, f"dense fft_axis(axis=-1) on the (256, 256, 129) "
+                       f"spectrum vs float64 fft: rel err {err:.3e}")
+    err = rel_err(torch, dn.fft_axis(dn.fft_axis(X, 2), 2, True), X)
+    check(err < 1e-6, f"dense last-axis round trip (n = 129): rel err "
+                      f"{err:.3e}")
+    err = rel_err(torch, bwd(X), u)
+    check(err < 1e-6, f"dense 256^3 round trip: rel err {err:.3e}")
+    for k in ("dense_fft_axis", "dense_fft_last", "dense_rfft_last",
+              "dense_irfft_last"):
+        check(p3.LAUNCHES[k] > 0, f"dense 256^3 launched {k}: "
+                                  f"{p3.LAUNCHES[k]}")
+    k1 = median_ms(torch, lambda: bwd(fwd(u)))
+    t1 = median_ms(torch, lambda: torch.fft.irfftn(torch.fft.rfftn(u),
+                                                   s=u.shape))
+    t2 = median_ms(torch, lambda: torch.fft.irfftn(torch.fft.rfftn(u),
+                                                   s=u.shape))
+    k2 = median_ms(torch, lambda: bwd(fwd(u)))
+    print(f"time dense 256^3 chain round trip (6 launches): {k1:.4f} / "
+          f"{k2:.4f} ms; torch.fft irfftn(rfftn(u)): {t1:.4f} / {t2:.4f} "
+          f"ms", flush=True)
+
+
+def wide_packed_phase(torch, p3, R2C, NavierStokes3D, steps256):
+    """Packed NS3D at WIDE (320, 320, 1280; refused before the kernels
+    took the reference's envelope): 5 RK4 steps from Taylor–Green, the
+    hand-written launches a step equal to the 256³ packed step's
+    (``steps256``, 5 steps), the energy decaying, the state against the
+    complex layout's after the same steps (1e-5 relative L2, as at 256³),
+    ms per step and peak memory.  dt = DT / 2 keeps max |k|·|u|·dt (k2 up
+    to 426 under the 2/3 rule, |u| <= 1) inside RK4's stability bound of
+    2.8 on the imaginary axis."""
+    def solver(layout):
+        FFT = R2C(np.array(WIDE), np.array([TAU] * 3), None, "single",
+                  device="cuda")
+        return NavierStokes3D(FFT, nu=NU, dt=DT / 2, dealias="2/3-rule",
+                              integrator="RK4", spectral_layout=layout)
+
+    label = "packed NS3D 320x320x1280"
+    s = solver("packed")
+    U, _, ms, peak, steps = run_steps(torch, p3, s, label)
+    check(steps == steps256, f"{label} launches in 5 steps {steps} equal "
+                             f"the 256^3 packed step's")
+    c = solver("complex")
+    Uc, _, ms_c, peak_c, _ = run_steps(torch, p3, c, "NS3D complex "
+                                                     "320x320x1280")
+    err = rel_l2(torch, s.from_packed(U), Uc)
+    check(err <= 1e-5, f"{label} vs the complex layout after 5 steps: rel "
+                       f"L2 err {err:.3e}")
+    print(f"time NS3D 320x320x1280 RK4 2/3-rule single: packed {ms:.3f} "
+          f"ms/step, complex {ms_c:.3f} ms/step (host clock over 5 steps, "
+          f"synchronised); peak step memory above the resident: packed "
+          f"{peak / 2**30:.3f} GiB, complex {peak_c / 2**30:.3f} GiB",
+          flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from mpifft4py_tpu_torch.ops import _build, fft3d as p3, zdif as zd
+    import mpifft4py_tpu_torch as T
+    from mpifft4py_tpu_torch.ops import _build, dense as dn, fft3d as p3
+    from mpifft4py_tpu_torch.ops import zdif as zd
     from mpifft4py_tpu_torch.line import R2C as LineR2C
     from mpifft4py_tpu_torch.slab import C2C, R2C
     from mpifft4py_tpu_torch.models import (Boussinesq3D, MHD3D,
@@ -925,7 +1215,8 @@ def main():
             print("ptxas " + line.split(":", 1)[-1].strip(), flush=True)
 
     rng = np.random.default_rng(SEED)
-    kern = kernel_phase(torch, p3, zd, rng)
+    kern = kernel_phase(torch, p3, zd, dn, rng)
+    envelope_phase(torch, p3)
 
     # the main path: each of its paths runs with the counts set to 0 just
     # before it and read just after
@@ -941,8 +1232,8 @@ def main():
     path(transform_phase, torch, p3, R2C, rng)
     path(padded_transform_phase, torch, p3, R2C, C2C, rng)
     Uc, Ud, ms_c, peak_c = path(solver_phase, torch, p3, R2C, NavierStokes3D)
-    path(packed_solver_phase, torch, p3, R2C, NavierStokes3D, Uc, Ud, ms_c,
-         peak_c)
+    steps256 = path(packed_solver_phase, torch, p3, R2C, NavierStokes3D, Uc,
+                    Ud, ms_c, peak_c)
     path(padded_solver_phase, torch, p3, R2C, NavierStokes3D, ms_c, peak_c)
     path(family_phase, torch, p3, {"R2C": R2C, "VV": VorticityVelocity3D,
                                    "MHD": MHD3D, "Boussinesq": Boussinesq3D},
@@ -950,6 +1241,9 @@ def main():
     del Uc, Ud
     path(line_phase, torch, LineR2C, rng)
     path(ns2d_phase, torch, p3, LineR2C, NavierStokes2D)
+    path(serial_phase, torch, p3, T)
+    path(dense_phase, torch, p3, dn)
+    path(wide_packed_phase, torch, p3, R2C, NavierStokes3D, steps256)
     for k, n in launches.items():
         check(n > 0, f"main path launched {k} {n} times")
 

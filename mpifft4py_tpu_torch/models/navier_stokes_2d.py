@@ -21,8 +21,8 @@ Two spectral layouts:
   (``rfft_last_zdif``/``irfft_last_zdif``) and the wavenumber vector is
   permuted to match, as in the reference.  Its gate is the reference's
   (P == 1, the 2/3 rule, (N1/2) % 128 == 0, N0 = r·m with r <= 8 and
-  m >= 8) and the kernels' envelope (``supported_c2c(N0)``,
-  ``supported_r2c(N1)``).
+  m >= 8, i.e. ``supported_c2c(N0)``) and ``supported_r2c(N1)`` (even
+  N1 <= 2048, where the z kernels stop, as the reference's do).
 
 The reference is not a ``SpectralSolver``: it borrows ``_advance`` and
 ``staged_mean``, and so does the port.
@@ -41,16 +41,6 @@ from ..utils.spectral import dealias_cutoffs
 from .navier_stokes import INTEGRATORS, SpectralSolver
 
 __all__ = ["NavierStokes2D"]
-
-
-def _factor(n: int):
-    """n = r·m with the largest m <= 128 dividing n; returns (r, m) (the
-    reference's ``pallas_fft3d._factor`` without its tuning table and
-    knob)."""
-    for m in range(min(n, 128), 0, -1):
-        if n % m == 0:
-            return n // m, m
-    return n, 1
 
 
 class NavierStokes2D:
@@ -89,7 +79,7 @@ class NavierStokes2D:
     def _validate_packed(self):
         FFT = self.FFT
         n0, n1 = int(FFT.N[0]), int(FFT.N[1])
-        r0, m0 = _factor(n0)
+        r0, m0 = p3._factor(n0)
         if not (getattr(FFT, "P", 1) == 1 and self.dealias == "2/3-rule"
                 and (n1 // 2) % 128 == 0 and r0 <= 8 and m0 >= 8):
             raise ValueError(
@@ -97,11 +87,11 @@ class NavierStokes2D:
                 "(N1/2) % 128 == 0 and N0 = r·m with r <= 8, m <= 128 "
                 "(the reference's planar-stage gate: N0 <= 1024 for powers "
                 "of two)")
-        if not (p3.supported_c2c(n0) and p3.supported_r2c(n1)):
+        if not p3.supported_r2c(n1):
             raise ValueError(
-                f"packed 2D layout: (N0, N1) = ({n0}, {n1}) is outside the "
-                f"kernels' envelope (N0 and N1 = 2^a·3^b, b <= 1, "
-                f"16..1024)")
+                f"packed 2D layout: N1 = {n1} is outside the z kernels' "
+                f"envelope (even N1 <= 2048; the reference's gate has no "
+                f"upper bound, but its kernels stop there too)")
 
     def _init_packed(self):
         """Factored scaled wavenumber vectors of the packed pair: k0 signed

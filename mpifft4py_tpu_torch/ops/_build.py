@@ -58,6 +58,17 @@ _SIGNATURES = {
     "planar_irfft_launch": (_P,) * 5 + (_L, _I, _I, ctypes.c_float, _P),
     # xr, xi, yr, yi, tw, rows, n, inverse, scale, stream
     "fft_last_launch": (_P,) * 5 + (_L, _I, _I, ctypes.c_float, _P),
+    # the dense tier (rows 19-22, complex64 at the boundary):
+    # x, y, tw, pre, n, post, inverse, stream
+    "fft_axis_c64_launch": (_P, _P, _P, _L, _I, _L, _I, _P),
+    # x, y, tw, rows, n, inverse, stream
+    "fft_last_c64_launch": (_P, _P, _P, _L, _I, _I, _P),
+    # x, y, tw_h, tw_n, rows, n, stream (even n)
+    "rfft_c64_launch": (_P,) * 4 + (_L, _I, _P),
+    "irfft_c64_launch": (_P,) * 4 + (_L, _I, _P),
+    # x, y, tw, rows, n, stream (full length, odd n)
+    "rfft_full_c64_launch": (_P,) * 3 + (_L, _I, _P),
+    "irfft_full_c64_launch": (_P,) * 3 + (_L, _I, _P),
 }
 
 _lib = None

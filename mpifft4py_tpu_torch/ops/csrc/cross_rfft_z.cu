@@ -47,7 +47,7 @@ __device__ __forceinline__ float2 cross_pair(const float* __restrict__ p,
   return make_float2(p1.x * q2.x - p2.x * q1.x, p1.y * q2.y - p2.y * q1.y);
 }
 
-template <int OP>
+template <int OP, bool kMixed>
 __global__ void __launch_bounds__(1024)
 product_rfft_z_kernel(const float* __restrict__ a,
                       const float* __restrict__ b,
@@ -89,7 +89,7 @@ product_rfft_z_kernel(const float* __restrict__ a,
     s[t * pitch + col] = v;
   }
   __syncthreads();
-  fftblock::block_fft(s, h, ncol, pitch, plan, tw_h, -1.f);
+  fftblock::block_fft<kMixed>(s, h, ncol, pitch, plan, tw_h, -1.f);
   for (int e = threadIdx.x; e < elems; e += blockDim.x) {
     const int col = e / h;
     const int k = e % h;
@@ -107,14 +107,12 @@ int launch(const float* a, const float* b, const float* c, const float* d,
            float* yr, float* yi, const void* tw_h, const void* tw_n,
            long long rows, int n, const fftblock::RowGeometry& g,
            cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      product_rfft_z_kernel<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(g.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  product_rfft_z_kernel<OP><<<g.blocks, g.threads, g.smem, stream>>>(
-      a, b, c, d, yr, yi, static_cast<const float2*>(tw_h),
-      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB);
-  return static_cast<int>(cudaGetLastError());
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(g.plan) ? product_rfft_z_kernel<OP, true>
+                                   : product_rfft_z_kernel<OP, false>,
+      g.blocks, g.threads, g.smem, stream, a, b, c, d, yr, yi,
+      static_cast<const float2*>(tw_h), static_cast<const float2*>(tw_n),
+      g.plan, n, rows, g.RB);
 }
 
 }  // namespace

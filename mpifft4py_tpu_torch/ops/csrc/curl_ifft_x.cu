@@ -33,7 +33,7 @@ using fftblock::Plan;
 
 namespace {
 
-template <bool BS>
+template <bool BS, bool kMixed>
 __global__ void __launch_bounds__(1024)
 curl_ifft_x_kernel(const float* __restrict__ ur, const float* __restrict__ ui,
                    const float* __restrict__ k0, const float* __restrict__ k1,
@@ -76,7 +76,7 @@ curl_ifft_x_kernel(const float* __restrict__ ur, const float* __restrict__ ui,
       s[r * ncol + col] = v;
     }
     __syncthreads();
-    fftblock::block_fft(s, n, ncol, ncol, plan, tw, 1.f);
+    fftblock::block_fft<kMixed>(s, n, ncol, ncol, plan, tw, 1.f);
     for (int e = threadIdx.x; e < elems; e += blockDim.x) {
       const int r = e / ncol;
       const int col = e % ncol;
@@ -99,18 +99,13 @@ int launch(const float* ur, const float* ui, const float* k0,
            const void* tw, const Plan& plan, int n, int h, long long Q,
            int passes, cudaStream_t stream) {
   const int T = fftblock::stack3_cols(n);
-  const long long blocks = (Q + T - 1) / T;
-  const size_t smem = static_cast<size_t>(n) * 3 * T * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      curl_ifft_x_kernel<BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = fftblock::threads_for(n * 3 * T);
-  curl_ifft_x_kernel<BS>
-      <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-          ur, ui, k0, k1, k2, yr, yi, static_cast<const float2*>(tw), plan,
-          n, h, static_cast<int>(Q), T, passes);
-  return static_cast<int>(cudaGetLastError());
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(plan) ? curl_ifft_x_kernel<BS, true>
+                                 : curl_ifft_x_kernel<BS, false>,
+      static_cast<unsigned>((Q + T - 1) / T), fftblock::threads_for(n * 3 * T),
+      static_cast<size_t>(n) * 3 * T * sizeof(float2), stream, ur, ui, k0,
+      k1, k2, yr, yi, static_cast<const float2*>(tw), plan, n, h,
+      static_cast<int>(Q), T, passes);
 }
 
 }  // namespace
@@ -128,7 +123,7 @@ extern "C" int curl_ifft_x_launch(const float* ur, const float* ui,
                                   void* stream) {
   const Plan plan = fftblock::make_plan(n);
   const long long Q = static_cast<long long>(n1) * h;
-  if (plan.nst == 0 || n > 1024 || n1 < 1 || h < 1 || Q > 0x7fffffffLL)
+  if (plan.nst == 0 || n1 < 1 || h < 1 || Q > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int passes = with_state ? 2 : 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -3,15 +3,26 @@
 // A tile holds `ncol` independent complex sequences of length n, element
 // (index i, column c) at s[i * pitch + c] (pitch >= ncol; a pitch one larger
 // than the column count keeps strided accesses off a single bank).  Each
-// stage reads every element into registers, synchronises, and writes the
-// butterfly outputs back in Stockham order, so one buffer of n * pitch
-// float2 serves all stages and the result leaves in natural order.
+// stage reads what it needs into registers, synchronises, and writes its
+// outputs back in Stockham order, so one buffer of n * pitch float2 serves
+// all stages and the result leaves in natural order.
 //
-// n = 2^a * 3^b with b <= 1: one radix-2 stage when a is odd, radix-4 for
-// the rest of the power of two, one radix-3 stage for the factor 3.
+// Any 2 <= n <= kMaxN (1024) has a plan (mixed radix):
+// - register stages: one radix-2 stage when the power of two is odd,
+//   radix 4 for the rest of it, then radix 3, 5 and 7 for each such
+//   factor; a thread holds its butterflies' inputs in registers;
+// - a direct stage for each remaining prime factor p (11..1021): each
+//   thread computes up to kEPT of the stage's outputs, each a p-term sum
+//   over the tile, in registers, before the barrier; so it needs no second
+//   buffer, and its shared memory is the register stages'.  The sum is
+//   compensated (Kahan), so its float32 error does not grow with p.
+// The reference's c2c envelope (supported_c2c: n = r*m, m <= 128 the
+// largest divisor, r <= 8) has prime factors up to 127; the half-length
+// h = n/2 <= 1024 of its r2c envelope (even n <= 2048) up to 1021.
 // Twiddles come from a float32 table tw[m] = exp(sign * 2*pi*i * m / n)
-// that the host computes in float64.  FP32 throughout; no fast-math
-// intrinsics (the round trip must stay below 1e-6 relative).
+// that the host computes in float64; a direct stage indexes it with the
+// exact product (t * (k + q * Ns)) mod (Ns * p).  FP32 throughout; no
+// fast-math intrinsics (the round trip must stay below 1e-6 relative).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,28 +33,33 @@ namespace fftblock {
 // block so that blockDim.x * kEPT >= n * ncol.
 constexpr int kEPT = 16;
 constexpr int kMaxStages = 12;
+constexpr int kMaxN = 1024;
 
 struct Plan {
   int nst;
   int radix[kMaxStages];
 };
 
-// Host and device: the radix sequence for n, or nst = 0 outside the envelope.
+// Host and device: the radix sequence for n, or nst = 0 outside
+// 2 <= n <= kMaxN.  Radices above 7 are direct stages.
 __host__ __device__ inline Plan make_plan(int n) {
   Plan p;
   p.nst = 0;
+  if (n < 2 || n > kMaxN) return p;
   int m = n;
-  bool three = false;
-  if (m % 3 == 0) {
-    three = true;
-    m /= 3;
-  }
   int a = 0;
-  while ((1 << a) < m) ++a;
-  if (m < 1 || (1 << a) != m || m % 3 == 0) return p;
+  while (m % 2 == 0) {
+    m /= 2;
+    ++a;
+  }
   if (a % 2) p.radix[p.nst++] = 2;
   for (int i = 0; i < a / 2; ++i) p.radix[p.nst++] = 4;
-  if (three) p.radix[p.nst++] = 3;
+  for (int f = 3; f <= m; f += 2) {
+    while (m % f == 0) {
+      p.radix[p.nst++] = f;
+      m /= f;
+    }
+  }
   return p;
 }
 
@@ -95,6 +111,61 @@ __device__ __forceinline__ void dft<3>(float2 (&v)[3], float sign) {
   v[2] = csub(m, r);
 }
 
+// Odd R-point DFT from the symmetric pairs v_t +- v_{R-t}: with
+// c[m] = cos(2*pi*m/R), s[m] = sin(2*pi*m/R) for m = 0..(R-1)/2 and the
+// angles 2*pi*t*q/R,
+//   y_q     = v_0 + sum_t (v_t + v_{R-t}) cos
+//                 + i*sign * sum_t (v_t - v_{R-t}) sin,
+//   y_{R-q} = the same with the sine term negated.
+template <int R>
+__device__ __forceinline__ void dft_odd(float2 (&v)[R], float sign,
+                                        const float* c, const float* s) {
+  constexpr int H = (R - 1) / 2;
+  float2 sp[H + 1], dm[H + 1];
+  float2 out[R];
+  out[0] = v[0];
+#pragma unroll
+  for (int t = 1; t <= H; ++t) {
+    sp[t] = cadd(v[t], v[R - t]);
+    dm[t] = csub(v[t], v[R - t]);
+    out[0] = cadd(out[0], sp[t]);
+  }
+#pragma unroll
+  for (int q = 1; q <= H; ++q) {
+    float2 a = v[0];
+    float2 b = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int t = 1; t <= H; ++t) {
+      const int m = (t * q) % R;
+      const float cm = m <= H ? c[m] : c[R - m];
+      const float sm = m <= H ? s[m] : -s[R - m];
+      a = make_float2(a.x + cm * sp[t].x, a.y + cm * sp[t].y);
+      b = make_float2(b.x + sm * dm[t].x, b.y + sm * dm[t].y);
+    }
+    const float2 ib = make_float2(-sign * b.y, sign * b.x);  // i*sign*b
+    out[q] = cadd(a, ib);
+    out[R - q] = csub(a, ib);
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) v[q] = out[q];
+}
+
+template <>
+__device__ __forceinline__ void dft<5>(float2 (&v)[5], float sign) {
+  const float c[3] = {1.f, 0.309016994374947424f, -0.809016994374947424f};
+  const float s[3] = {0.f, 0.951056516295153572f, 0.587785252292473129f};
+  dft_odd<5>(v, sign, c, s);
+}
+
+template <>
+__device__ __forceinline__ void dft<7>(float2 (&v)[7], float sign) {
+  const float c[4] = {1.f, 0.623489801858733531f, -0.222520933956314404f,
+                      -0.900968867902419127f};
+  const float s[4] = {0.f, 0.781831482468029809f, 0.974927912181823607f,
+                      0.433883739117558120f};
+  dft_odd<7>(v, sign, c, s);
+}
+
 template <int R>
 __device__ __forceinline__ void stage(float2* s, int n, int ncol, int pitch,
                                       int Ns, const float2* __restrict__ tw,
@@ -136,8 +207,85 @@ __device__ __forceinline__ void stage(float2* s, int n, int ncol, int pitch,
   __syncthreads();
 }
 
+// sum += term with Kahan's compensation in comp.
+__device__ __forceinline__ void kahan_add(float& sum, float& comp,
+                                          float term) {
+  const float y = term - comp;
+  const float t = sum + y;
+  comp = (t - sum) - y;
+  sum = t;
+}
+
+// A direct p-point stage in Stockham order: output q of butterfly j
+// (k = j mod Ns) is y_q = sum_t x[j + t*n/p] tw[((t*(k + q*Ns)) mod (Ns*p))
+// * n/(Ns*p)], the inter-stage twiddle and the DFT's in one table entry.
+// Each thread computes up to kEPT outputs (index e = r*ncol + c, r = q*n/p
+// + j) in registers before the barrier.
+__device__ inline void stage_direct(float2* s, int n, int ncol, int pitch,
+                                    int Ns, int p,
+                                    const float2* __restrict__ tw) {
+  const int stride = n / p;
+  const int M = Ns * p;
+  const int twstep = n / M;
+  const int elems = n * ncol;
+  float2 y[kEPT];
+#pragma unroll
+  for (int i = 0; i < kEPT; ++i) {
+    const int e = threadIdx.x + i * blockDim.x;
+    if (e < elems) {
+      const int c = e % ncol;
+      const int r = e / ncol;
+      const int j = r % stride;
+      const int q = r / stride;
+      const int step = (j % Ns + q * Ns) % M;
+      float2 sum = make_float2(0.f, 0.f);
+      float2 comp = make_float2(0.f, 0.f);
+      int idx = 0;
+      for (int t = 0; t < p; ++t) {
+        const float2 x = s[(j + t * stride) * pitch + c];
+        const float2 w = __ldg(&tw[idx * twstep]);
+        kahan_add(sum.x, comp.x, x.x * w.x - x.y * w.y);
+        kahan_add(sum.y, comp.y, x.x * w.y + x.y * w.x);
+        idx += step;
+        if (idx >= M) idx -= M;
+      }
+      y[i] = sum;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kEPT; ++i) {
+    const int e = threadIdx.x + i * blockDim.x;
+    if (e < elems) {
+      const int c = e % ncol;
+      const int r = e / ncol;
+      const int j = r % stride;
+      const int q = r / stride;
+      const int k = j % Ns;
+      s[((j / Ns) * M + k + q * Ns) * pitch + c] = y[i];
+    }
+  }
+  __syncthreads();
+}
+
+// True when the plan has a stage other than radix 2, 3 and 4 (radix 5 or
+// 7, or a direct stage).  Each kernel has two instances, kMixed false and
+// true: ptxas allocates registers for the largest stage a kernel can run,
+// and with the radix-5/7 and direct stages compiled in it gave the kernels
+// 64 registers a thread where they had 32 (at 1024 threads a block, one
+// block an SM where there were two), and the kernels of the 256^3 plans
+// ran 16-43% slower on an H100 80GB HBM3 (700 W).  So the plans of the
+// old envelope (2^a * 3^b) keep the instance without those stages.
+__host__ __device__ inline bool mixed_plan(const Plan& p) {
+  for (int st = 0; st < p.nst; ++st)
+    if (p.radix[st] > 4) return true;
+  return false;
+}
+
 // Transforms every column of the tile; the caller has filled s and
-// synchronised.  Returns after a barrier, with the spectrum in s.
+// synchronised.  Returns after a barrier, with the spectrum in s.  The
+// plan's radices must be 2, 3 and 4 unless kMixed.
+template <bool kMixed>
 __device__ inline void block_fft(float2* s, int n, int ncol, int pitch,
                                  const Plan& plan,
                                  const float2* __restrict__ tw, float sign) {
@@ -148,11 +296,30 @@ __device__ inline void block_fft(float2* s, int n, int ncol, int pitch,
       stage<4>(s, n, ncol, pitch, Ns, tw, sign);
     } else if (R == 2) {
       stage<2>(s, n, ncol, pitch, Ns, tw, sign);
-    } else {
+    } else if (!kMixed || R == 3) {
       stage<3>(s, n, ncol, pitch, Ns, tw, sign);
+    } else if (R == 5) {
+      stage<5>(s, n, ncol, pitch, Ns, tw, sign);
+    } else if (R == 7) {
+      stage<7>(s, n, ncol, pitch, Ns, tw, sign);
+    } else {
+      stage_direct(s, n, ncol, pitch, Ns, R, tw);
     }
     Ns *= R;
   }
+}
+
+// Sets `kernel`'s dynamic shared memory to smem bytes and launches it with
+// `args`; 0 or the CUDA error.
+template <typename... P, typename... A>
+int launch_kernel(void (*kernel)(P...), unsigned blocks, int threads,
+                  size_t smem, cudaStream_t stream, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Threads for a tile of `elems` complex values: a whole number of warps.
@@ -179,7 +346,7 @@ struct RowGeometry {
 inline int row_geometry(int m, long long rows, RowGeometry* g,
                         int comps = 1) {
   g->plan = make_plan(m);
-  if (g->plan.nst == 0 || m > 1024 || rows < 1)
+  if (g->plan.nst == 0 || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   g->RB = kTile / m > 1 ? kTile / m : 1;
   const long long b = (rows + g->RB - 1) / g->RB;

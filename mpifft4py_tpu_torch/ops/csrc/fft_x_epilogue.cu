@@ -33,7 +33,7 @@ namespace {
 
 enum Mode { kProject = 0, kCurl = 1, kDiv = 2 };
 
-template <int MODE, bool BUOY>
+template <int MODE, bool BUOY, bool kMixed>
 __global__ void __launch_bounds__(1024)
 fft_x_epilogue_kernel(const float* __restrict__ fr,
                       const float* __restrict__ fi,
@@ -68,7 +68,7 @@ fft_x_epilogue_kernel(const float* __restrict__ fr,
     s[r * ncol + col] = v;
   }
   __syncthreads();
-  fftblock::block_fft(s, n, ncol, ncol, plan, tw, -1.f);
+  fftblock::block_fft<kMixed>(s, n, ncol, ncol, plan, tw, -1.f);
   for (int e = threadIdx.x; e < n * T; e += blockDim.x) {
     const int r = e / T;
     const int t = e % T;
@@ -126,18 +126,14 @@ struct Args {
 template <int MODE, bool BUOY>
 int launch(const Args& a, const Plan& plan, int n, int h, int Q, int T,
            float visc, float ri, cudaStream_t stream) {
-  const long long blocks = (static_cast<long long>(Q) + T - 1) / T;
-  const size_t smem = static_cast<size_t>(n) * 3 * T * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      fft_x_epilogue_kernel<MODE, BUOY>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = fftblock::threads_for(n * 3 * T);
-  fft_x_epilogue_kernel<MODE, BUOY>
-      <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-          a.fr, a.fi, a.sr, a.si, a.tr, a.ti, a.k0, a.k1, a.k2, a.m0, a.m1,
-          a.m2, a.yr, a.yi, a.tw, plan, n, h, Q, T, visc, ri);
-  return static_cast<int>(cudaGetLastError());
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(plan) ? fft_x_epilogue_kernel<MODE, BUOY, true>
+                                 : fft_x_epilogue_kernel<MODE, BUOY, false>,
+      static_cast<unsigned>((static_cast<long long>(Q) + T - 1) / T),
+      fftblock::threads_for(n * 3 * T),
+      static_cast<size_t>(n) * 3 * T * sizeof(float2), stream, a.fr, a.fi,
+      a.sr, a.si, a.tr, a.ti, a.k0, a.k1, a.k2, a.m0, a.m1, a.m2, a.yr, a.yi,
+      a.tw, plan, n, h, Q, T, visc, ri);
 }
 
 }  // namespace
@@ -161,7 +157,7 @@ extern "C" int fft_x_epilogue_launch(const float* fr, const float* fi,
   const Plan plan = fftblock::make_plan(n);
   const long long Q = static_cast<long long>(n1) * h;
   const bool buoy = tr != nullptr;
-  if (plan.nst == 0 || n > 1024 || n1 < 1 || h < 1 || Q > 0x7fffffffLL ||
+  if (plan.nst == 0 || n1 < 1 || h < 1 || Q > 0x7fffffffLL ||
       buoy != (ti != nullptr) || (buoy && mode != kProject))
     return static_cast<int>(cudaErrorInvalidValue);
   const int T = fftblock::stack3_cols(n);

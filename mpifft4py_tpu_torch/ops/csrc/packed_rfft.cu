@@ -43,7 +43,7 @@ using fftblock::Plan;
 
 namespace {
 
-template <bool kDif>
+template <bool kDif, bool kMixed>
 __global__ void __launch_bounds__(1024)
 packed_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
                    float* __restrict__ yi, const float2* __restrict__ tw_h,
@@ -63,7 +63,7 @@ packed_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
     s[t * pitch + rho] = v;
   }
   __syncthreads();
-  fftblock::block_fft(s, h, RB, pitch, plan, tw_h, -1.f);
+  fftblock::block_fft<kMixed>(s, h, RB, pitch, plan, tw_h, -1.f);
   for (int e = threadIdx.x; e < elems; e += blockDim.x) {
     const int rho = e / h;
     const int lane = e % h;
@@ -76,7 +76,7 @@ packed_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
   }
 }
 
-template <bool kDif>
+template <bool kDif, bool kMixed>
 __global__ void __launch_bounds__(1024)
 packed_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     float* __restrict__ y, const float2* __restrict__ tw_h,
@@ -116,7 +116,7 @@ packed_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     s[k * pitch + rho] = Z;
   }
   __syncthreads();
-  fftblock::block_fft(s, h, RB, pitch, plan, tw_h, 1.f);
+  fftblock::block_fft<kMixed>(s, h, RB, pitch, plan, tw_h, 1.f);
   const float inv_n = 1.f / static_cast<float>(n);
   for (int e = threadIdx.x; e < elems; e += blockDim.x) {
     const int rho = e / h;
@@ -136,15 +136,12 @@ int launch_rfft(const float* x, float* yr, float* yi, const void* tw_h,
   fftblock::RowGeometry g;
   const int bad = packedz::half_geometry(n, rows, &g);
   if (bad) return bad;
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_rfft_kernel<kDif>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(g.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  packed_rfft_kernel<kDif><<<g.blocks, g.threads, g.smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, yr, yi, static_cast<const float2*>(tw_h),
-      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB);
-  return static_cast<int>(cudaGetLastError());
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(g.plan) ? packed_rfft_kernel<kDif, true>
+                                   : packed_rfft_kernel<kDif, false>,
+      g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream), x, yr,
+      yi, static_cast<const float2*>(tw_h), static_cast<const float2*>(tw_n),
+      g.plan, n, rows, g.RB);
 }
 
 template <bool kDif>
@@ -153,15 +150,12 @@ int launch_irfft(const float* xr, const float* xi, float* y, const void* tw_h,
   fftblock::RowGeometry g;
   const int bad = packedz::half_geometry(n, rows, &g);
   if (bad) return bad;
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_irfft_kernel<kDif>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(g.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  packed_irfft_kernel<kDif><<<g.blocks, g.threads, g.smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, y, static_cast<const float2*>(tw_h),
-      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB);
-  return static_cast<int>(cudaGetLastError());
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(g.plan) ? packed_irfft_kernel<kDif, true>
+                                   : packed_irfft_kernel<kDif, false>,
+      g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream), xr, xi,
+      y, static_cast<const float2*>(tw_h), static_cast<const float2*>(tw_n),
+      g.plan, n, rows, g.RB);
 }
 
 }  // namespace

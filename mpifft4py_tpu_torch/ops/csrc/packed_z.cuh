@@ -58,7 +58,8 @@ __device__ __forceinline__ int zdif_lane(int k, int n) {
   return off + t;
 }
 
-// The row geometry of the h-point FFT of real rows of length n = 2h.
+// The row geometry of the h-point FFT of real rows of length n = 2h (any
+// even n <= 2048: fft_block.cuh plans every h <= 1024).
 inline int half_geometry(int n, long long rows, fftblock::RowGeometry* g,
                          int comps = 1) {
   if (n % 2) return static_cast<int>(cudaErrorInvalidValue);

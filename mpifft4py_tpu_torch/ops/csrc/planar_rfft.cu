@@ -19,6 +19,21 @@
 //   halved Nyquist: with the c2r's weight 2 its net weight is 1), and
 //   column h rides plane 0 only when nf_in = h + 1; scale/n at the store.
 //
+// The template parameter kC64 picks the spectrum's global layout: false,
+// the planar pair; true, interleaved complex64, for the dense tier's
+// mpifft4py_tpu/ops/pallas_fft.py: rfft_last (_rfft_kernel), row 21, numpy
+// rfft into nf = n/2 + 1 columns (here with scale 1), and irfft_last
+// (_irfft_kernel), row 22, numpy irfft from nf_in = n/2 + 1 columns.  Those
+// contract each row with dense (n x nfp) cos/sin matrices, so they take odd
+// n too; the half-length trick needs even n, so odd n takes the full-length
+// kernels at the end of this file: one n-point c2c of (x, 0) per row,
+// whose first n/2 + 1 columns are the r2c; and the c2c of the Hermitian
+// extension (X[n-k] = conj X[k], the imaginary parts of X[0] and, at even
+// n, X[n/2] dropped, as numpy's c2r does) whose real part is the c2r.
+// (The reference's irfft_last weights its last column as a Nyquist column
+// at every n, so at odd n it differs from numpy's irfft; these kernels
+// compute numpy's irfft.)
+//
 // Like packed_rfft.cu it is bound by HBM bytes: 4 bytes a real sample and
 // 8 a spectral column (about 2.5 n log2 n flops a row is far below the
 // 67 TFLOP/s of FP32).  The 3/2-rule rows (n = 384, h = 192 = 3 * 64) run
@@ -33,6 +48,27 @@ using fftblock::Plan;
 
 namespace {
 
+template <bool kC64>
+__device__ __forceinline__ float2 get(const float* __restrict__ xr,
+                                      const float* __restrict__ xi,
+                                      long long g) {
+  return kC64 ? reinterpret_cast<const float2*>(xr)[g]
+              : make_float2(xr[g], xi[g]);
+}
+
+template <bool kC64>
+__device__ __forceinline__ void put(float* __restrict__ yr,
+                                    float* __restrict__ yi, long long g,
+                                    float re, float im) {
+  if (kC64) {
+    reinterpret_cast<float2*>(yr)[g] = make_float2(re, im);
+  } else {
+    yr[g] = re;
+    yi[g] = im;
+  }
+}
+
+template <bool kC64, bool kMixed>
 __global__ void __launch_bounds__(1024)
 planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
                    float* __restrict__ yi, const float2* __restrict__ tw_h,
@@ -52,7 +88,7 @@ planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
     s[t * pitch + rho] = v;
   }
   __syncthreads();
-  fftblock::block_fft(s, h, RB, pitch, plan, tw_h, -1.f);
+  fftblock::block_fft<kMixed>(s, h, RB, pitch, plan, tw_h, -1.f);
   // columns 0..kmax-1 come from the untangle; column h from plane 0
   const int kmax = nf < h ? nf : h;
   const float last = dbl ? 2.f * scale : scale;
@@ -64,15 +100,10 @@ planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
     const long long g = (row0 + rho) * nf;
     const float w = k == nf - 1 ? last : scale;
     if (k == 0) {  // X = (X[0], X[h])
-      yr[g] = X.x * w;
-      yi[g] = 0.f;
-      if (nf == h + 1) {
-        yr[g + h] = X.y * scale;
-        yi[g + h] = 0.f;
-      }
+      put<kC64>(yr, yi, g, X.x * w, 0.f);
+      if (nf == h + 1) put<kC64>(yr, yi, g + h, X.y * scale, 0.f);
     } else {
-      yr[g + k] = X.x * w;
-      yi[g + k] = X.y * w;
+      put<kC64>(yr, yi, g + k, X.x * w, X.y * w);
     }
   }
 }
@@ -80,16 +111,21 @@ planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
 // Column k (0 <= k < h) of the packed form of a planar row at g with
 // nf_in columns: P_0 = X[0] + i*X[h] (X[h] = 0 unless nf_in = h + 1),
 // P_k = X[k] below nf_in, the interior column nf_in-1 halved.
+template <bool kC64>
 __device__ __forceinline__ float2 packed_in(const float* __restrict__ xr,
                                             const float* __restrict__ xi,
                                             long long g, int k, int h,
                                             int nf_in) {
-  if (k == 0) return make_float2(xr[g], nf_in == h + 1 ? xr[g + h] : 0.f);
+  if (k == 0)
+    return make_float2(get<kC64>(xr, xi, g).x,
+                       nf_in == h + 1 ? get<kC64>(xr, xi, g + h).x : 0.f);
   if (k >= nf_in) return make_float2(0.f, 0.f);
   const float w = k == nf_in - 1 ? 0.5f : 1.f;
-  return make_float2(w * xr[g + k], w * xi[g + k]);
+  const float2 X = get<kC64>(xr, xi, g + k);
+  return make_float2(w * X.x, w * X.y);
 }
 
+template <bool kC64, bool kMixed>
 __global__ void __launch_bounds__(1024)
 planar_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     float* __restrict__ y, const float2* __restrict__ tw_h,
@@ -106,12 +142,12 @@ planar_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     float2 Z = make_float2(0.f, 0.f);
     if (row0 + rho < rows) {
       const long long g = (row0 + rho) * nf_in;
-      const float2 X = packed_in(xr, xi, g, k, h, nf_in);
+      const float2 X = packed_in<kC64>(xr, xi, g, k, h, nf_in);
       if (k == 0) {
         // E0 = X[0] + X[h], O0 = X[0] - X[h]
         Z = make_float2(X.x + X.y, X.x - X.y);
       } else {
-        const float2 Xf = packed_in(xr, xi, g, h - k, h, nf_in);
+        const float2 Xf = packed_in<kC64>(xr, xi, g, h - k, h, nf_in);
         const float Er = X.x + Xf.x;  // 2 E = X + conj X[h-k]
         const float Ei = X.y - Xf.y;
         const float Dr = X.x - Xf.x;  // 2 e^{-2 pi i k/n} O = X - conj X[h-k]
@@ -125,7 +161,7 @@ planar_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     s[k * pitch + rho] = Z;
   }
   __syncthreads();
-  fftblock::block_fft(s, h, RB, pitch, plan, tw_h, 1.f);
+  fftblock::block_fft<kMixed>(s, h, RB, pitch, plan, tw_h, 1.f);
   const float sc = scale / static_cast<float>(n);
   for (int e = threadIdx.x; e < elems; e += blockDim.x) {
     const int rho = e / h;
@@ -137,29 +173,116 @@ planar_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-}  // namespace
+// The full-length r2c of rows of any length 2 <= n <= 1024 (used at odd
+// n): RB rows a block, the tile transposed as in fft_last.cu; the first
+// n/2 + 1 columns go out as complex64.
+template <bool kMixed>
+__global__ void __launch_bounds__(1024)
+rfft_full_kernel(const float* __restrict__ x, float2* __restrict__ y,
+                 const float2* __restrict__ tw, Plan plan, int n,
+                 long long rows, int RB) {
+  extern __shared__ float2 s[];
+  const int pitch = RB + 1;
+  const int nf = n / 2 + 1;
+  const long long row0 = static_cast<long long>(blockIdx.x) * RB;
+  for (int e = threadIdx.x; e < n * RB; e += blockDim.x) {
+    const int rho = e / n;
+    const int t = e % n;
+    const float v = row0 + rho < rows ? x[(row0 + rho) * n + t] : 0.f;
+    s[t * pitch + rho] = make_float2(v, 0.f);
+  }
+  __syncthreads();
+  fftblock::block_fft<kMixed>(s, n, RB, pitch, plan, tw, -1.f);
+  for (int e = threadIdx.x; e < nf * RB; e += blockDim.x) {
+    const int rho = e / nf;
+    const int k = e % nf;
+    if (row0 + rho < rows) y[(row0 + rho) * nf + k] = s[k * pitch + rho];
+  }
+}
 
-// Forward: x (rows, n) real -> (yr, yi) (rows, nf), 2 <= nf <= n/2 + 1;
-// dbl doubles column nf-1; every column is multiplied by scale.  tw_h: n/2
-// float2 of exp(-2 pi i m/(n/2)); tw_n: n/2 float2 of exp(-2 pi i k/n).
-extern "C" int planar_rfft_launch(const float* x, float* yr, float* yi,
-                                  const void* tw_h, const void* tw_n,
-                                  long long rows, int n, int nf, int dbl,
-                                  float scale, void* stream) {
+// Its inverse: the Hermitian extension of n/2 + 1 complex64 columns, one
+// n-point c2c, the real part scaled by 1/n.
+template <bool kMixed>
+__global__ void __launch_bounds__(1024)
+irfft_full_kernel(const float2* __restrict__ x, float* __restrict__ y,
+                  const float2* __restrict__ tw, Plan plan, int n,
+                  long long rows, int RB) {
+  extern __shared__ float2 s[];
+  const int pitch = RB + 1;
+  const int nf = n / 2 + 1;
+  const long long row0 = static_cast<long long>(blockIdx.x) * RB;
+  for (int e = threadIdx.x; e < n * RB; e += blockDim.x) {
+    const int rho = e / n;
+    const int k = e % n;
+    float2 X = make_float2(0.f, 0.f);
+    if (row0 + rho < rows) {
+      const long long g = (row0 + rho) * nf;
+      if (k < nf) {
+        X = x[g + k];
+        if (k == 0 || 2 * k == n) X.y = 0.f;
+      } else {
+        const float2 Xc = x[g + n - k];
+        X = make_float2(Xc.x, -Xc.y);
+      }
+    }
+    s[k * pitch + rho] = X;
+  }
+  __syncthreads();
+  fftblock::block_fft<kMixed>(s, n, RB, pitch, plan, tw, 1.f);
+  const float inv_n = 1.f / static_cast<float>(n);
+  for (int e = threadIdx.x; e < n * RB; e += blockDim.x) {
+    const int rho = e / n;
+    const int t = e % n;
+    if (row0 + rho < rows)
+      y[(row0 + rho) * n + t] = s[t * pitch + rho].x * inv_n;
+  }
+}
+
+template <bool kC64>
+int launch_rfft(const float* x, float* yr, float* yi, const void* tw_h,
+                const void* tw_n, long long rows, int n, int nf, int dbl,
+                float scale, void* stream) {
   fftblock::RowGeometry g;
   const int bad = packedz::half_geometry(n, rows, &g);
   if (bad) return bad;
   if (nf < 2 || nf > n / 2 + 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      planar_rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(g.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  planar_rfft_kernel<<<g.blocks, g.threads, g.smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, yr, yi, static_cast<const float2*>(tw_h),
-      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB, nf, dbl,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(g.plan) ? planar_rfft_kernel<kC64, true>
+                                   : planar_rfft_kernel<kC64, false>,
+      g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream), x, yr,
+      yi, static_cast<const float2*>(tw_h), static_cast<const float2*>(tw_n),
+      g.plan, n, rows, g.RB, nf, dbl, scale);
+}
+
+template <bool kC64>
+int launch_irfft(const float* xr, const float* xi, float* y,
+                 const void* tw_h, const void* tw_n, long long rows, int n,
+                 int nf_in, float scale, void* stream) {
+  fftblock::RowGeometry g;
+  const int bad = packedz::half_geometry(n, rows, &g);
+  if (bad) return bad;
+  if (nf_in < 2 || nf_in > n / 2 + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(g.plan) ? planar_irfft_kernel<kC64, true>
+                                   : planar_irfft_kernel<kC64, false>,
+      g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream), xr, xi,
+      y, static_cast<const float2*>(tw_h), static_cast<const float2*>(tw_n),
+      g.plan, n, rows, g.RB, nf_in, scale);
+}
+
+}  // namespace
+
+// Forward: x (rows, n) real -> (yr, yi) (rows, nf), 2 <= nf <= n/2 + 1,
+// even n <= 2048; dbl doubles column nf-1; every column is multiplied by
+// scale.  tw_h: n/2 float2 of exp(-2 pi i m/(n/2)); tw_n: n/2 float2 of
+// exp(-2 pi i k/n).
+extern "C" int planar_rfft_launch(const float* x, float* yr, float* yi,
+                                  const void* tw_h, const void* tw_n,
+                                  long long rows, int n, int nf, int dbl,
+                                  float scale, void* stream) {
+  return launch_rfft<false>(x, yr, yi, tw_h, tw_n, rows, n, nf, dbl, scale,
+                            stream);
 }
 
 // Inverse: (xr, xi) (rows, nf_in) -> y (rows, n) real, 2 <= nf_in <=
@@ -169,18 +292,53 @@ extern "C" int planar_irfft_launch(const float* xr, const float* xi, float* y,
                                    const void* tw_h, const void* tw_n,
                                    long long rows, int n, int nf_in,
                                    float scale, void* stream) {
+  return launch_irfft<false>(xr, xi, y, tw_h, tw_n, rows, n, nf_in, scale,
+                             stream);
+}
+
+// Row 21 at even n <= 2048: x (rows, n) real -> y (rows, n/2 + 1)
+// complex64, numpy's rfft; tw_h, tw_n as for planar_rfft_launch.
+extern "C" int rfft_c64_launch(const float* x, void* y, const void* tw_h,
+                               const void* tw_n, long long rows, int n,
+                               void* stream) {
+  return launch_rfft<true>(x, static_cast<float*>(y), nullptr, tw_h, tw_n,
+                           rows, n, n / 2 + 1, 0, 1.f, stream);
+}
+
+// Row 22 at even n <= 2048: x (rows, n/2 + 1) complex64 -> y (rows, n)
+// real, numpy's irfft; tw_h, tw_n as for planar_irfft_launch.
+extern "C" int irfft_c64_launch(const void* x, float* y, const void* tw_h,
+                                const void* tw_n, long long rows, int n,
+                                void* stream) {
+  return launch_irfft<true>(static_cast<const float*>(x), nullptr, y, tw_h,
+                            tw_n, rows, n, n / 2 + 1, 1.f, stream);
+}
+
+// Rows 21-22 full-length, any 2 <= n <= 1024 (the wrappers take them at
+// odd n): tw is n float2 of exp(-2 pi i m/n) (forward) or exp(+2 pi i m/n)
+// (inverse).
+extern "C" int rfft_full_c64_launch(const float* x, void* y, const void* tw,
+                                    long long rows, int n, void* stream) {
   fftblock::RowGeometry g;
-  const int bad = packedz::half_geometry(n, rows, &g);
+  const int bad = fftblock::row_geometry(n, rows, &g);
   if (bad) return bad;
-  if (nf_in < 2 || nf_in > n / 2 + 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      planar_irfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(g.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  planar_irfft_kernel<<<g.blocks, g.threads, g.smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, y, static_cast<const float2*>(tw_h),
-      static_cast<const float2*>(tw_n), g.plan, n, rows, g.RB, nf_in, scale);
-  return static_cast<int>(cudaGetLastError());
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(g.plan) ? rfft_full_kernel<true>
+                                   : rfft_full_kernel<false>,
+      g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream), x,
+      static_cast<float2*>(y), static_cast<const float2*>(tw), g.plan, n,
+      rows, g.RB);
+}
+
+extern "C" int irfft_full_c64_launch(const void* x, float* y, const void* tw,
+                                     long long rows, int n, void* stream) {
+  fftblock::RowGeometry g;
+  const int bad = fftblock::row_geometry(n, rows, &g);
+  if (bad) return bad;
+  return fftblock::launch_kernel(
+      fftblock::mixed_plan(g.plan) ? irfft_full_kernel<true>
+                                   : irfft_full_kernel<false>,
+      g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream),
+      static_cast<const float2*>(x), y, static_cast<const float2*>(tw),
+      g.plan, n, rows, g.RB);
 }

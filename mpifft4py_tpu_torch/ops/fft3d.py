@@ -6,7 +6,9 @@ packed-Hermitian planar layout.  Kernel functions take and return planar
 column 0 holding X[0] + i·X[n/2].
 
 Eleven CUDA kernels (``csrc/``; the fused three with template variants)
-carry the path:
+carry the path, each for every length of the reference's envelope
+(``supported_c2c``/``supported_r2c``, through the mixed-radix plans of
+``csrc/fft_block.cuh``):
 
 * ``fft_axis`` (``fft_axis_planar``): c2c along a non-last axis;
 * ``packed_rfft_last`` / ``packed_irfft_last`` (``rfft_last_packed`` /
@@ -32,6 +34,9 @@ carry the path:
 launch per stage (see the source note in ``csrc/fft_axis.cu``); so do the
 fused right-hand-side functions, whose y stages are ``fft_axis`` launches.
 
+``ops/dense.py`` (rows 19–22) launches complex64 instances of
+``fft_axis``, ``fft_last`` and the planar r2c/c2r, counted here too.
+
 Every kernel function has a plain twin (``*_ref``) over ``torch.fft``.  A
 wrapper runs the twin for CPU tensors only; for CUDA tensors it launches the
 kernel or raises.  ``LAUNCHES`` counts kernel launches by kernel name, each
@@ -50,6 +55,7 @@ from ..utils import spectral
 
 __all__ = [
     "LAUNCHES", "reset_launches", "supported_c2c", "supported_r2c",
+    "supported_r2c_grid",
     "fft_axis_planar", "rfft_last_packed", "irfft_last_packed",
     "fused_zy_fwd", "fused_zy_bwd", "rfft3d_packed", "irfft3d_packed",
     "unpack_plane0", "pack_plane0", "unpack_spectrum", "pack_spectrum",
@@ -67,7 +73,10 @@ LAUNCHES = {"fft_axis": 0, "packed_rfft_last": 0, "packed_irfft_last": 0,
             "fft_x_epilogue": 0, "fft_x_epilogue_buoy": 0,
             "fft_x_epilogue_curl": 0, "fft_x_epilogue_div": 0,
             "planar_rfft_last": 0, "planar_irfft_last": 0, "fft_last": 0,
-            "packed_rfft_last_zdif": 0, "packed_irfft_last_zdif": 0}
+            "packed_rfft_last_zdif": 0, "packed_irfft_last_zdif": 0,
+            # rows 19-22, launched by ops/dense.py
+            "dense_fft_axis": 0, "dense_fft_last": 0, "dense_rfft_last": 0,
+            "dense_irfft_last": 0}
 
 
 def reset_launches() -> None:
@@ -75,14 +84,36 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _factor(n: int):
+    """n = r·m with the largest m <= 128 dividing n; returns (r, m) (the
+    reference's ``pallas_fft3d._factor`` without its tuning table and
+    override knob)."""
+    for m in range(min(n, 128), 0, -1):
+        if n % m == 0:
+            return n // m, m
+    return n, 1
+
+
 def supported_c2c(n: int) -> bool:
-    """n = 2^a·3^b with b <= 1 and 16 <= n <= 1024 (the kernels' plans)."""
-    m = n // 3 if n % 3 == 0 else n
-    return 16 <= n <= 1024 and m & (m - 1) == 0
+    """The reference's c2c envelope: n = r·m with m <= 128 the largest
+    divisor of n, r <= 8 and m >= 8 (so n <= 1024 and every prime factor
+    <= 127).  The kernels' mixed-radix plans (``csrc/fft_block.cuh``) serve
+    every such n."""
+    r, m = _factor(n)
+    return r <= 8 and m >= 8
 
 
 def supported_r2c(n: int) -> bool:
-    return n % 2 == 0 and supported_c2c(n)
+    """The reference's r2c envelope: even n in 16..2048 (a half-length
+    FFT of n/2 <= 1024 points)."""
+    return n % 2 == 0 and 16 <= n <= 2048
+
+
+def supported_r2c_grid(shape) -> bool:
+    """A 3-D real grid (N0, N1, N2) the r2c chain serves: ``supported_c2c``
+    N0 and N1, ``supported_r2c`` N2."""
+    return (len(shape) == 3 and supported_c2c(int(shape[0]))
+            and supported_c2c(int(shape[1])) and supported_r2c(int(shape[2])))
 
 
 # -- validation and routing ----------------------------------------------------
@@ -481,27 +512,29 @@ def purify_plane0_dus(yr, yi):
 #
 # The state is a packed pair (3, N0, N1, h); the wavenumbers and 2/3-rule
 # masks arrive as the solver's 1-D vectors k0/m0 (N0), k1/m1 (N1), k2/m2 (h).
-# The gates are shape predicates of the kernels' envelope: the tiles of
-# csrc/ always fit one block, so no memory budget enters (the reference's
-# VMEM budgets do not carry over).
+# The gates are the reference's envelope predicates: the kernels' plans
+# serve every length in them, and the tiles of csrc/ always fit one block,
+# so no memory budget enters (the reference's VMEM budgets do not carry
+# over).
 
 def curl_fused_ok(n0: int) -> bool:
-    """The curl + x-inverse kernel serves x length ``n0``."""
+    """The curl + x-inverse kernel serves x length ``n0``: every
+    ``supported_c2c`` length."""
     return supported_c2c(n0)
 
 
 def cross_zy_ok(n1: int, n2: int) -> bool:
-    """The cross + z kernel and the y stage serve (n1, n2) planes, 512-class
+    """The cross + z kernel and the y stage serve (n1, n2) planes: every
+    ``supported_c2c`` n1 and ``supported_r2c`` n2, 512-class planes
     included (row 13's function: the kernel has no whole-plane working
     set)."""
     return supported_c2c(n1) and supported_r2c(n2)
 
 
 def fft_x_epilogue_ok(n0: int) -> bool:
-    """The x-forward + epilogue kernel serves x length ``n0``."""
+    """The x-forward + epilogue kernel serves x length ``n0``: every
+    ``supported_c2c`` length."""
     return supported_c2c(n0)
-
-
 
 
 def kvecs(k0, k1, k2):

@@ -299,21 +299,19 @@ class R2C(_Slab3D):
     # -- routes ------------------------------------------------------------------
 
     def _kernel3d_ok(self) -> bool:
-        """The hand-written kernel path: float32, even N2, every axis in the
-        kernels' envelope (2^a·3^b, b <= 1, 16..1024).  A pure predicate: the
+        """The hand-written kernel path: float32 and every axis in the
+        reference's envelope (``supported_c2c`` N0, N1: n = r·m, m <= 128
+        the largest divisor, r <= 8, m >= 8; ``supported_r2c`` N2: even,
+        16..2048), all of which the kernels serve.  A pure predicate: the
         CPU takes the same glue through the kernels' plain twins."""
         return (self.float == torch.float32
-                and p3.supported_r2c(int(self.N[2]))
-                and p3.supported_c2c(int(self.N[0]))
-                and p3.supported_c2c(int(self.N[1])))
+                and p3.supported_r2c_grid(self.N))
 
     def _padded_kernel_ok(self) -> bool:
         """The 3/2 rule's kernel path: float32 and every padded length M in
         the kernels' envelope (the reference's ``_pallas_dist_padded_ok``,
         which it takes first, even at P == 1)."""
-        M0, M1, M2 = (int(m) for m in self.M)
-        return (self.float == torch.float32 and p3.supported_r2c(M2)
-                and p3.supported_c2c(M0) and p3.supported_c2c(M1))
+        return self.float == torch.float32 and p3.supported_r2c_grid(self.M)
 
     def _kernel_ok(self, dealias) -> bool:
         return (self._padded_kernel_ok() if dealias == "3/2-rule"

@@ -83,9 +83,9 @@ def test_cfft3d_matches_pallas(rng, inverse):
 
 
 def test_c2c_wrappers_reject_outside_envelope(rng):
-    x = torch.zeros((4, 20))
+    x = torch.zeros((4, 1018))
     with pytest.raises(ValueError):
-        tp3.fft_last_planar_c2c(x, x)                       # 20 = 4·5
+        tp3.fft_last_planar_c2c(x, x)                       # 1018 = 2·509
     with pytest.raises(ValueError):
         tp3.fft_last_planar_c2c(x[:, :16], x[:, :8])        # re/im shapes
     with pytest.raises(TypeError):
@@ -182,4 +182,5 @@ def test_c2c_kernel_gate_is_a_shape_predicate():
     assert ok((16, 24, 48)) and ok((256, 256, 256), "3/2-rule")
     assert not ok((16, 16, 16), precision="double")
     assert not ok((16, 16, 1024), "3/2-rule")       # M2 = 1536
-    assert not ok((20, 16, 16))
+    assert not ok((262, 16, 16))                    # 262 = 2·131
+    assert ok((20, 40, 112))                        # the reference's too

@@ -100,9 +100,9 @@ def test_rfft3d_round_trip_against_numpy(rng, shape):
 
 
 def test_wrappers_reject_outside_envelope(rng):
-    x = _t(_f32(rng, (4, 20, 8)))
+    x = _t(_f32(rng, (4, 131, 8)))
     with pytest.raises(ValueError):
-        tp3.fft_axis_planar(x, x, 1)                  # 20 = 4·5
+        tp3.fft_axis_planar(x, x, 1)                  # 131: a prime > 128
     with pytest.raises(ValueError):
         tp3.fft_axis_planar(x, x, 2)                  # last axis
     with pytest.raises(TypeError):
@@ -111,17 +111,20 @@ def test_wrappers_reject_outside_envelope(rng):
     with pytest.raises(ValueError):
         tp3.fft_axis_planar(y.transpose(0, 1), y.transpose(0, 1), 0)
     with pytest.raises(ValueError):
-        tp3.rfft_last_packed(_t(_f32(rng, (4, 18))))  # 18 = 2·9
+        tp3.rfft_last_packed(_t(_f32(rng, (4, 2050))))  # above 2048
     with pytest.raises(ValueError):
         tp3.irfft_last_packed(y, y, 32)               # width 8 != 16
 
 
 def test_envelope_predicates():
-    ok = [16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024]
+    """The reference's envelope (tests/test_torch_envelope.py holds the
+    two packages' predicates equal for every n in 1..2048)."""
+    ok = [8, 12, 16, 24, 40, 112, 127, 160, 384, 640, 768, 1016, 1024]
     assert all(tp3.supported_c2c(n) for n in ok)
     assert not any(tp3.supported_c2c(n)
-                   for n in (8, 12, 18, 20, 36, 40, 1152, 1536, 2048))
-    assert tp3.supported_r2c(48) and not tp3.supported_r2c(2048)
+                   for n in (4, 7, 131, 1018, 1152, 1536, 2048))
+    assert tp3.supported_r2c(48) and tp3.supported_r2c(2042)
+    assert not any(tp3.supported_r2c(n) for n in (14, 17, 2049, 2050))
 
 
 def test_port_imports_no_jax():

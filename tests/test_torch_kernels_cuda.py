@@ -289,8 +289,7 @@ def test_c2c_on_the_card_matches_float64(cuda):
         back = C.fftn(C.ifftn(fu, dealias=dealias), dealias=dealias)
         torch.cuda.synchronize()
         assert float((back - fu).abs().max()) < 1e-6 * float(fu.abs().max())
-    # the 3/2 rule's kernel chain against its torch.fft route (at N, M =
-    # 48·72·96 is outside the kernels' envelope)
+    # the 3/2 rule's kernel chain against its torch.fft route
     C = C2C(np.array((32, 32, 64)), np.array([2 * np.pi] * 3), None,
             "single", device=cuda)
     assert C._kernel_ok("3/2-rule")
@@ -386,3 +385,85 @@ def test_ns2d_packed_step_on_the_card_matches_complex(cuda, n1):
     err = float(torch.linalg.vector_norm(p.unpack_state(Wp) - Wc)
                 / torch.linalg.vector_norm(Wc))
     assert err <= 1e-5
+
+
+# -- the widened plans (radix 5 and 7, direct prime stages) ---------------------
+#
+# c2c n = 40 (2^3·5), 112 (2^4·7), 640 (2^7·5), 1016 (8·127: a direct
+# 127-point stage); r2c n = 1280 (h = 640) and 2042 (h = 1021: a direct
+# 1021-point stage).  The round trips are held to 1e-6 of max |x|.
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [40, 112, 640, 1016])
+def test_widened_c2c_plans_match_twin(cuda, n, inverse):
+    xr, xi = _f32((3, n, 20), cuda, 1), _f32((3, n, 20), cuda, 2)
+    _close(p3.fft_axis_planar(xr, xi, 1, inverse),
+           p3.fft_axis_planar_ref(xr, xi, 1, inverse))
+    yr, yi = _f32((21, n), cuda, 3), _f32((21, n), cuda, 4)
+    got = p3.fft_last_planar_c2c(yr, yi, inverse)
+    _close(got, p3.fft_last_planar_c2c_ref(yr, yi, inverse))
+    back = p3.fft_last_planar_c2c(*got, not inverse)
+    torch.cuda.synchronize()
+    assert float((back[0] - yr).abs().max()) < 1e-6 * float(yr.abs().max())
+    shape = (3, n, 5, 64)
+    ur, ui = _f32(shape, cuda, 5), _f32(shape, cuda, 6)
+    k = _kvecs(shape[1:], cuda)
+    _close(p3.curl_ifft_x(ur, ui, *k[:3], True),
+           p3.curl_ifft_x_ref(ur, ui, *k[:3], True))
+    _close(tuple(p3.fft_x_epilogue_packed(ur, ui, ur, ui, *k, "project",
+                                          0.01)),
+           tuple(p3.fft_x_epilogue_packed_ref(ur, ui, ur, ui, *k, "project",
+                                              0.01)))
+
+
+@pytest.mark.parametrize("n", [1280, 2042])
+def test_widened_r2c_plans_match_twin(cuda, n):
+    x = _f32((3, 5, n), cuda)
+    ref = p3.rfft_last_packed_ref(x)
+    got = p3.rfft_last_packed(x)
+    _close(got, ref)
+    _close(p3.irfft_last_packed(*ref, n), p3.irfft_last_packed_ref(*ref, n))
+    back = p3.irfft_last_packed(*got, n)
+    torch.cuda.synchronize()
+    assert float((back - x).abs().max()) < 1e-6 * float(x.abs().max())
+    _close(p3.rfft_last_planar(x), p3.rfft_last_planar_ref(x))
+    b = _f32((3, 5, n), cuda, 7)
+    _close(p3.cross_rfft_z(x, b), p3.cross_rfft_z_ref(x, b))
+
+
+# -- the dense tier (rows 19-22, complex64 at the boundary) ----------------------
+
+def _c64(shape, device, seed=0):
+    return torch.complex(_f32(shape, device, seed), _f32(shape, device,
+                                                           seed + 1))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape,axis,name", [
+    ((4, 40, 33), 1, "dense_fft_axis"), ((112, 6), 0, "dense_fft_axis"),
+    ((3, 640, 5), 1, "dense_fft_axis"), ((2, 7, 1016), 2, "dense_fft_last"),
+    ((9, 15), 1, "dense_fft_last"), ((5, 256, 1), 1, "dense_fft_last")])
+def test_dense_fft_axis_matches_twin(cuda, shape, axis, name, inverse):
+    from mpifft4py_tpu_torch.ops import dense as dn
+    x = _c64(shape, cuda)
+    before = p3.LAUNCHES[name]
+    got = dn.fft_axis(x, axis, inverse)
+    assert p3.LAUNCHES[name] == before + 1
+    _close(torch.view_as_real(got),
+           torch.view_as_real(dn.fft_axis_ref(x, axis, inverse)))
+
+
+@pytest.mark.parametrize("n", [16, 15, 40, 41, 112, 1023, 1280, 2042, 2048])
+def test_dense_rfft_irfft_match_twin(cuda, n):
+    from mpifft4py_tpu_torch.ops import dense as dn
+    x = _f32((3, 7, n), cuda)
+    before = dict(p3.LAUNCHES)
+    X = dn.rfft_last(x)
+    _close(torch.view_as_real(X), torch.view_as_real(dn.rfft_last_ref(x)))
+    Y = _c64((3, 7, n // 2 + 1), cuda, 2)
+    _close(dn.irfft_last(Y, n), dn.irfft_last_ref(Y, n))
+    back = dn.irfft_last(X, n)
+    torch.cuda.synchronize()
+    assert float((back - x).abs().max()) < 1e-6 * float(x.abs().max())
+    assert p3.LAUNCHES["dense_rfft_last"] == before["dense_rfft_last"] + 1
+    assert p3.LAUNCHES["dense_irfft_last"] == before["dense_irfft_last"] + 2

@@ -280,13 +280,17 @@ def test_packed_gate_refuses_what_the_reference_refuses():
     both((32, 192))                       # h = 96: the lane gate fails
     both((32, 256), dealias=None)
     both((2048, 256))                     # N0 = 16·128: r > 8
-    # the reference accepts N0 = 40 (r = 1, m = 40); the port's kernels
-    # take N0 = 2^a·3^b only
-    JNS2(jline.R2C(np.array([40, 256]), L, 1, "single"),
-         spectral_layout="packed", **KW)
-    with pytest.raises(ValueError, match="envelope"):
-        TNS2(tline.R2C(np.array([40, 256]), L, None, "single", device="cpu"),
+    # both accept N0 = 40 (r = 1, m = 40) and N1 = 2048; above 2048 the
+    # reference's gate accepts N1 but its z kernels stop (supported_r2c),
+    # and the port's gate refuses it
+    for shape in ((40, 256), (16, 2048)):
+        JNS2(jline.R2C(np.array(shape), L, 1, "single"),
              spectral_layout="packed", **KW)
+        TNS2(tline.R2C(np.array(shape), L, None, "single", device="cpu"),
+             spectral_layout="packed", **KW)
+    with pytest.raises(ValueError, match="envelope"):
+        TNS2(tline.R2C(np.array([16, 4096]), L, None, "single",
+                       device="cpu"), spectral_layout="packed", **KW)
     F = tline.R2C(np.array([32, 256]), L, None, "single", device="cpu")
     with pytest.raises(ValueError):
         TNS2(F, spectral_layout="wide", **KW)

@@ -198,9 +198,11 @@ def test_off_path_variants_raise(rng):
 
 def test_gates_are_shape_predicates():
     assert tp3.curl_fused_ok(256) and tp3.fft_x_epilogue_ok(1024)
-    assert not tp3.curl_fused_ok(8) and not tp3.fft_x_epilogue_ok(2048)
+    assert tp3.curl_fused_ok(40) and tp3.fft_x_epilogue_ok(1016)
+    assert not tp3.curl_fused_ok(4) and not tp3.fft_x_epilogue_ok(2048)
     assert tp3.cross_zy_ok(512, 512) and tp3.cross_zy_ok(256, 256)
-    assert not tp3.cross_zy_ok(20, 256) and not tp3.cross_zy_ok(64, 2048)
+    assert tp3.cross_zy_ok(20, 256) and tp3.cross_zy_ok(64, 2048)
+    assert not tp3.cross_zy_ok(131, 256) and not tp3.cross_zy_ok(64, 4096)
 
 
 # -- the packed interface -----------------------------------------------------------

@@ -98,8 +98,10 @@ def test_kernel_gate_is_a_shape_predicate():
         return tslab.R2C(np.array(N), np.array([TAU] * 3), None, precision,
                          device="cpu")._kernel3d_ok()
     assert ok((16, 24, 32)) and ok((256, 256, 256)) and ok((48, 96, 1024))
+    assert ok((18, 40, 2048)) and ok((8, 112, 1280))
     assert not ok((32, 32, 32), "double")
-    assert not ok((18, 32, 32)) and not ok((32, 32, 2048)) and not ok((8, 32, 32))
+    assert not ok((262, 32, 32)) and not ok((32, 32, 2050))   # 262 = 2·131
+    assert not ok((4, 32, 32))
 
 
 def test_unported_options_raise():
