@@ -50,7 +50,21 @@ Phases, each checked; any failed check makes the exit code non-zero:
 11. packed NS3D at (320, 320, 1280) (radix 5 on x, y and the packed
     z): 5 RK4 steps, the hand-written launches a step equal to the 256³
     packed step's, the energy decaying, the state against the complex
-    layout's, ms per step and peak memory.
+    layout's, ms per step and peak memory;
+12. the distributed slab on one card: P = 2, then P = 4, ranks spawned
+    on ``cuda:0`` with a gloo group (NCCL refuses two ranks on one card)
+    and ``communication="rdma"`` (rows 23-25 over CUDA IPC): ``slab.R2C``
+    256³ forward and round trip, the gathered spectrum against the P == 1
+    kernel path (1e-6) and float64 ``torch.fft.rfftn`` (2e-6), the 2/3-rule
+    forward and the 3/2-rule forward (row 23) against the P == 1 path,
+    ``slab.C2C`` 256³ round trip; at P = 2 also 5 packed NS3D 256³ RK4
+    steps from Taylor–Green, the energy decaying, each step's launches
+    exactly 4 x one right-hand side's (``DIST_RHS``), the state against
+    phase 5's P == 1 state (1e-5 relative L2); ms per round trip and per
+    step with the share spent in the fences (synchronise + barrier).  The
+    ranks time-slice one card: these are not scaling figures.  Each rank
+    counts its own launches around each call, and they join the main
+    path's counts.
 
 Before the main path, the envelope sweep holds the widened plans against
 their twins (1e-5) and in round trips through the kernels (1e-6):
@@ -63,7 +77,7 @@ the forward of a product field against a float64 alias-sum oracle) and
 ``slab.C2C`` (forward against float64 ``torch.fft.fftn``, round trip, and
 the 3/2-rule round trip and forward, the latter against float64 ``fftn``
 on the 384³ grid truncated to 256³).
-Phases 3–11 are the main path: each runs with the kernels' launch counters
+Phases 3–12 are the main path: each runs with the kernels' launch counters
 set to 0 just before it and read just after, and phases 4–8 also read them
 around each of their steps.  Phase 2 also holds each template variant of
 the fused kernels (Biot–Savart curl, cross2 and mul products, the curl,
@@ -72,7 +86,9 @@ solvers' right-hand sides, and rows 17–18 (the DIF lane order of the
 packed 2D layout) at n = 512, 768 and 1024 on the 1024² field and the
 (4, 1024, n/2) stack of NS2D's batched inverse, against their twins (and
 row 17 against row 4 permuted, and a round trip) at 1e-6, and rows 19–22
-at the 256³ chain's shapes and the full-length r2c/c2r at odd n.  Each kernel's
+at the 256³ chain's shapes and the full-length r2c/c2r at odd n, and
+rows 23-25 with in-process buffer tables at P = 2 and 4 (P ranks emulated
+by one launch each) at phase 12's 256³ shapes.  Each kernel's
 time is its median beside its plain twin's and, where one exists, one ``torch.fft`` call's computing the
 same function, with the bound of its bytes at 3.35 TB/s and of its FFT
 flops (5 n log2 n a complex transform, half that a real one) at 67 TFLOP/s
@@ -81,8 +97,10 @@ FP32.  The second-to-last line is ``{"kernels": [...]}``; the last is
 prints no result.
 """
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -92,9 +110,11 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 TAU = 2 * np.pi
 SEED = 0
+QTIMEOUT = 600          # seconds phase 12 waits for a rank's result
 
 PALLAS = "mpifft4py_tpu/ops/pallas_fft3d.py"
 DENSE = "mpifft4py_tpu/ops/pallas_fft.py"
+RDMA = "mpifft4py_tpu/parallel/rdma.py"
 CSRC = "mpifft4py_tpu_torch/ops/csrc"
 KERNELS = {
     # name: (source, Pallas kernel(s) it replaces, with their row in PERF.md)
@@ -137,7 +157,20 @@ KERNELS = {
                         f"{DENSE}:215 (row 21, rfft_last)"),
     "dense_irfft_last": (f"{CSRC}/planar_rfft.cu",
                          f"{DENSE}:266 (row 22, irfft_last)"),
+    "peer_a2a": (f"{CSRC}/peer_a2a.cu", f"{RDMA}:229 (row 23, "
+                                        f"rdma_all_to_all)"),
+    "peer_fft_x": (f"{CSRC}/peer_fft_x.cu",
+                   f"{RDMA}:437 (row 24, fused_transpose_fft_x)"),
+    "peer_ifft_x": (f"{CSRC}/peer_fft_x.cu",
+                    f"{RDMA}:592 (row 25, fused_ifft_x_transpose)"),
 }
+# phase 12: the packed NS3D step at P = 2 under "rdma": one right-hand side
+# launches row 25 twice (the state and the curl, one 3-stack each) and row
+# 23 four times (the nonlinear term's transpose and the plane-0 gather, a
+# launch per planar leaf); RK4 runs four a step
+DIST_RHS = {"peer_a2a": 4, "peer_fft_x": 0, "peer_ifft_x": 2,
+            "cross_rfft_z": 1, "fft_axis": 3, "packed_irfft_last": 2,
+            "fft_x_epilogue": 1}
 NU, DT = 0.000625, 0.01
 TRANSFORM_KERNELS = ("fft_axis", "packed_rfft_last", "packed_irfft_last")
 PADDED_KERNELS = ("fft_axis", "planar_rfft_last", "planar_irfft_last")
@@ -542,7 +575,121 @@ def kernel_phase(torch, p3, zd, dn, rng):
               f"{'none' if l1 is None else f'{l1:.4f} ms'}, bound "
               f"{b_ms:.4f} ms ({b_by}: {nb / 1e6:.1f} MB, "
               f"{fl / 1e9:.2f} GFLOP)", flush=True)
+    # rows 2-3 (the fused z+y, served by two launches each) beside the one
+    # torch.fft call that computes the same function, 256^3
+    u = cu((256, 256, 256))
+    yr, yi = p3.fused_zy_fwd(u)
+    yc = torch.fft.rfft2(u, dim=(-2, -1))
+    for label, kern, lib in (
+            ("fused_zy_fwd (rows 4 + 1)", lambda: p3.fused_zy_fwd(u),
+             lambda: torch.fft.rfft2(u, dim=(-2, -1))),
+            ("fused_zy_bwd (rows 1 + 5)", lambda: p3.fused_zy_bwd(yr, yi, 256),
+             lambda: torch.fft.irfft2(yc, s=(256, 256), dim=(-2, -1)))):
+        k1, l1 = median_ms(torch, kern), median_ms(torch, lib)
+        l2, k2 = median_ms(torch, lib), median_ms(torch, kern)
+        print(f"time {label} 256^3: two launches {k1:.4f} / {k2:.4f} ms, "
+              f"torch.fft {'rfft2' if 'fwd' in label else 'irfft2'} over "
+              f"the last two axes {l1:.4f} / {l2:.4f} ms", flush=True)
+    del u, yr, yi, yc
     return out
+
+
+def peer_kernel_phase(torch, rdma, rng):
+    """Rows 23-25 against their plain twins with in-process buffer tables
+    (P ranks emulated: one launch a rank) at P = 2 and 4 and the 256³
+    shapes of phase 12 (relative 1e-5), the P = 2 call of rank 0 timed
+    beside its twin and the same work in torch; returns their JSON
+    numbers."""
+    def cu(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    errs = dict.fromkeys(("peer_a2a", "peer_fft_x", "peer_ifft_x"), 0.0)
+
+    def compare(name, label, got, ref):
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            rel = rel_err(torch, g, r)
+            errs[name] = max(errs[name], float((g - r).abs().max()))
+            check(rel <= 1e-5, f"kernel {name} {label}: rel err {rel:.3e} "
+                               f"(limit 1e-5)")
+
+    n, C, h = 256, 3, 128
+    for P in (2, 4):
+        np0, np1 = n // P, n // P
+        # row 23 at the nonlinear term's transpose: (3, Np0, N1, h) split 2
+        # -> concat 1, distinct values in every rank's input
+        xs = [cu((C, np0, n, h)) + 1e3 * r for r in range(P)]
+        out = (1, C, n, np1, h)
+        kb = rdma.SymmetricBuffer.local(P, out, "cuda")
+        pb = rdma.SymmetricBuffer.local(P, out, "cuda")
+        for my in range(P):
+            rdma.a2a_push(xs[my], kb, my, 2, 1)
+            rdma.a2a_push_ref(xs[my], pb, my, 2, 1)
+        compare("peer_a2a", f"P={P} (3, {np0}, 256, 128) 2->1",
+                kb.tensors, pb.tensors)
+        # rows 24-25 at the slab transform's pair (1, Np0, N1, h)
+        pull = rdma.SymmetricBuffer([cu((2, 1, np0, n, h)) + r
+                                     for r in range(P)])
+        for my in range(P):
+            compare("peer_fft_x", f"P={P} rank {my} (2, 1, {np0}, 256, 128)",
+                    tuple(rdma.fft_x_pull(pull, my)),
+                    tuple(rdma.fft_x_pull_ref(pull, my)))
+        kb = rdma.SymmetricBuffer.local(P, (2, 1, np0, n, h), "cuda")
+        pb = rdma.SymmetricBuffer.local(P, (2, 1, np0, n, h), "cuda")
+        spec = [(cu((1, n, np1, h)), cu((1, n, np1, h))) for _ in range(P)]
+        for my, (xr, xi) in enumerate(spec):
+            rdma.ifft_x_push(xr, xi, kb, my)
+            rdma.ifft_x_push_ref(xr, xi, pb, my)
+        compare("peer_ifft_x", f"P={P} (1, 256, {np1}, 128)", kb.tensors,
+                pb.tensors)
+        del xs, kb, pb, pull, spec
+
+    # the timed cases: rank 0 of P = 2
+    P, np0, np1 = 2, n // 2, n // 2
+    xs = [cu((C, np0, n, h)) for _ in range(P)]
+    a2a_buf = rdma.SymmetricBuffer.local(P, (1, C, n, np1, h), "cuda")
+    pull = rdma.SymmetricBuffer([cu((2, 1, np0, n, h)) for _ in range(P)])
+    zb = [torch.complex(t[0, 0, :, :np1], t[1, 0, :, :np1]).contiguous()
+          for t in pull.tensors]          # the blocks rank 0 receives
+    xr, xi = cu((1, n, np1, h)), cu((1, n, np1, h))
+    z = torch.complex(xr[0], xi[0])
+    push = rdma.SymmetricBuffer.local(P, (2, 1, np0, n, h), "cuda")
+    dst = [torch.empty((np0, np1, h), dtype=torch.complex64, device="cuda")
+           for _ in range(P)]
+
+    def ifft_lib():
+        y = torch.fft.ifft(z, dim=0)
+        for d in range(P):
+            dst[d].copy_(y[d * np0:(d + 1) * np0])
+
+    pair = 2 * 4 * np0 * n * h          # one rank's planar pair, bytes
+    cases = {
+        "peer_a2a": (lambda: rdma.a2a_push(xs[0], a2a_buf, 0, 2, 1),
+                     lambda: rdma.a2a_push_ref(xs[0], a2a_buf, 0, 2, 1),
+                     None, 2 * nbytes(xs[0]), 0.0),
+        "peer_fft_x": (lambda: rdma.fft_x_pull(pull, 0),
+                       lambda: rdma.fft_x_pull_ref(pull, 0),
+                       lambda: torch.fft.fft(torch.cat(zb), dim=0),
+                       2 * pair, fft_flops(n * np1 * h, n)),
+        "peer_ifft_x": (lambda: rdma.ifft_x_push(xr, xi, push, 0),
+                        lambda: rdma.ifft_x_push_ref(xr, xi, push, 0),
+                        ifft_lib, 2 * pair, fft_flops(n * np1 * h, n)),
+    }
+    res = {}
+    for name, (kern, plain, lib, nb, fl) in cases.items():
+        p1, k1 = median_ms(torch, plain), median_ms(torch, kern)
+        l1 = median_ms(torch, lib) if lib else None
+        k2, p2 = median_ms(torch, kern), median_ms(torch, plain)
+        b_ms, b_by = bound(nb, fl)
+        res[name] = dict(max_abs_err=errs[name], ms=min(k1, k2),
+                         plain_ms=min(p1, p2), bound_ms=b_ms, bound_by=b_by,
+                         library_ms=l1)
+        print(f"time {name} (P=2, rank 0's call): kernel {k1:.4f} / "
+              f"{k2:.4f} ms, plain twin {p1:.4f} / {p2:.4f} ms, torch "
+              f"{'none' if l1 is None else f'{l1:.4f} ms'}, bound "
+              f"{b_ms:.4f} ms ({b_by}: {nb / 1e6:.1f} MB)", flush=True)
+    return res
 
 
 def envelope_phase(torch, p3):
@@ -863,7 +1010,7 @@ def packed_solver_phase(torch, p3, R2C, NavierStokes3D, Uc, Ud, ms_c, peak_c):
           f"synchronised); peak step memory above the resident: packed "
           f"{peak / 2**30:.3f} GiB, complex {peak_c / 2**30:.3f} GiB",
           flush=True)
-    return steps
+    return steps, U
 
 
 def padded_solver_phase(torch, p3, R2C, NavierStokes3D, ms_c, peak_c):
@@ -1180,6 +1327,257 @@ def wide_packed_phase(torch, p3, R2C, NavierStokes3D, steps256):
           flush=True)
 
 
+def _dist_counts(p3, rdma):
+    return {**p3.LAUNCHES, **rdma.LAUNCHES}
+
+
+def _reset_counts(p3, rdma):
+    p3.reset_launches()
+    rdma.reset_launches()
+
+
+def dist_child(rank, P, store, ns_file, q, n=256, device="cuda"):
+    """One rank of phase 12 (a spawned process on cuda:0, a gloo group of
+    P): the main path's distributed calls under ``communication="rdma"``,
+    each with the launch counts set to 0 just before it and read just
+    after; rank 0 holds the gathered results against the P == 1 kernel
+    path (a world-of-one group on the same card) and float64
+    ``torch.fft``.  Puts (rank, results) or (rank, traceback) on ``q``.
+    (``n``/``device`` shrink it for a rehearsal on the CPU.)"""
+    import traceback
+    try:
+        q.put((rank, _dist_child(rank, P, store, ns_file, n, device)))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+
+
+def _dist_child(rank, P, store, ns_file, n, device):
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from mpifft4py_tpu_torch.models import NavierStokes3D
+    from mpifft4py_tpu_torch.ops import fft3d as p3
+    from mpifft4py_tpu_torch.parallel import rdma
+    from mpifft4py_tpu_torch.slab import C2C, R2C
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, P),
+                            rank=rank, world_size=P)
+    one = [dist.new_group([r]) for r in range(P)]    # a world of one each
+    out = {"checks": [], "counts": {}, "times": {}}
+    N, L = np.array([n] * 3), np.array([TAU] * 3)
+
+    def note(ok, what):
+        out["checks"].append((bool(ok), f"P={P} rank {rank}: {what}"))
+
+    def main_path(label, fn):
+        sync()
+        _reset_counts(p3, rdma)
+        res = fn()
+        sync()
+        out["counts"][label] = _dist_counts(p3, rdma)
+        return res
+
+    rng = np.random.default_rng(SEED + 12)
+    u = rng.standard_normal((n,) * 3).astype(np.float32)
+    F = R2C(N, L, None, "single", communication="rdma", device=device)
+    F1 = R2C(N, L, one[rank], "single", device=device)
+    ul = F.shard_real(u)
+
+    # R2C: forward, round trip, 2/3 rule; rows 24-25 and row 23
+    fu = main_path("R2C forward", lambda: F.fftn(ul))
+    back = main_path("R2C backward", lambda: F.ifftn(fu))
+    note(rel_err(torch, back, ul) < 1e-6, f"R2C {n}^3 round trip rel err "
+         f"{rel_err(torch, back, ul):.3e}")
+    f23 = main_path("R2C 2/3 forward", lambda: F.fftn(ul, dealias="2/3-rule"))
+    g, g23 = F.gather(fu), F.gather(f23)
+    if rank == 0:
+        ug = dev(u)
+        for got, ref, what in (
+                (g, F1.fftn(ug), "forward vs the P == 1 kernel path"),
+                (g23, F1.fftn(ug, dealias="2/3-rule"),
+                 "2/3-rule forward vs the P == 1 kernel path")):
+            err = rel_err(torch, dev(got), ref)
+            note(err <= 1e-6, f"R2C {n}^3 {what}: rel err {err:.3e}")
+        ref = torch.fft.rfftn(ug.double())
+        err = rel_err(torch, dev(g).to(ref.dtype), ref)
+        note(err <= 2e-6, f"R2C {n}^3 forward vs float64 rfftn: rel err "
+                          f"{err:.3e}")
+        del ug, ref
+    del g, g23, f23
+
+    # the 3/2 rule through row 23: the forward from the padded grid
+    m = 3 * n // 2
+    u3 = rng.standard_normal((m,) * 3).astype(np.float32)
+    f32 = main_path("R2C 3/2 forward",
+                    lambda: F.fftn(F.shard_real(u3), dealias="3/2-rule"))
+    g32 = F.gather(f32)
+    if rank == 0:
+        ref = F1.fftn(dev(u3), dealias="3/2-rule")
+        err = rel_err(torch, dev(g32), ref)
+        note(err <= 1e-6, f"R2C {n}^3 3/2-rule forward vs the P == 1 kernel "
+                          f"path: rel err {err:.3e}")
+        del ref
+    del u3, f32, g32
+
+    # C2C round trip (row 23)
+    C = C2C(N, L, None, "single", communication="rdma", device=device)
+    uc = C.shard_real(u + 1j * u[::-1])
+    cb = main_path("C2C round trip", lambda: C.ifftn(C.fftn(uc)))
+    note(rel_err(torch, cb, uc) < 1e-6, f"C2C {n}^3 round trip rel err "
+         f"{rel_err(torch, cb, uc):.3e}")
+    del C, uc, cb
+
+    # times: the R2C round trip (host clock, every rank synchronised)
+    fwd, bwd = F.forward_fn(), F.backward_fn()
+    for _ in range(2):
+        bwd(fwd(ul))
+    sync()
+    dist.barrier()
+    f0, t0 = F._peers.fence_seconds, time.perf_counter()
+    for _ in range(10):
+        bwd(fwd(ul))
+    sync()
+    wall = time.perf_counter() - t0
+    out["times"]["R2C round trip ms"] = wall * 1e3 / 10
+    out["times"]["R2C round trip fence share"] = \
+        (F._peers.fence_seconds - f0) / wall
+    del fu, back, ul, F, F1, fwd, bwd
+
+    if ns_file is not None:
+        out.update(_dist_ns3d(torch, NavierStokes3D, R2C, p3, rdma, ns_file,
+                              note, main_path, N, L, device, sync, dev))
+    # drop the peers' mapped buffers on every rank before any rank exits
+    gc.collect()
+    sync()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _dist_ns3d(torch, NavierStokes3D, R2C, p3, rdma, ns_file, note,
+               main_path, N, L, device, sync, dev):
+    """Packed NS3D, RK4, 5 steps from Taylor–Green under "rdma": the
+    energy decays, each step launches exactly 4 x DIST_RHS (on the card),
+    and the state is held against phase 5's P == 1 state (rel L2 1e-5 over
+    the group)."""
+    import torch.distributed as dist
+    FFT = R2C(N, L, None, "single", communication="rdma", device=device)
+    s = NavierStokes3D(FFT, nu=NU, dt=DT, dealias="2/3-rule",
+                       integrator="RK4", spectral_layout="packed")
+    U0 = s.taylor_green()
+    e = [s.energy(U0)]
+    U = U0
+    steps = []
+    for i in range(5):
+        U = main_path(f"NS3D step {i}", lambda: s.step(U))
+        steps.append(_dist_counts(p3, rdma))
+        e.append(s.energy(U))
+    want = {k: 4 * c for k, c in DIST_RHS.items() if c}
+    for i, c in enumerate(steps):
+        got = {k: v for k, v in c.items() if v}
+        note(got == want or device != "cuda",
+             f"packed NS3D step {i} launches {got} (expected {want})")
+    note(all(a > b for a, b in zip(e, e[1:])) and abs(e[0] - 0.125) < 1e-6,
+         f"packed NS3D energies {e} start at 0.125 and decrease")
+    ref = dev(FFT._block(np.load(ns_file), -2))
+    num = FFT._all_reduce(((U - ref) ** 2).sum().double())
+    den = FFT._all_reduce((ref ** 2).sum().double())
+    err = float(torch.sqrt(num / den))
+    note(err <= 1e-5, f"packed NS3D {int(N[0])}^3 after 5 steps vs the "
+                      f"P == 1 packed state (phase 5): rel L2 err {err:.3e}")
+    sync()
+    dist.barrier()
+    f0, t0 = FFT._peers.fence_seconds, time.perf_counter()
+    V = U0
+    for _ in range(5):
+        V = s.step(V)
+    sync()
+    wall = time.perf_counter() - t0
+    return {"ns_times": {"ms/step": wall * 1e3 / 5,
+                         "fence share": (FFT._peers.fence_seconds - f0)
+                         / wall}}
+
+
+def dist_phase(torch, launches, U_packed, n=256, device="cuda"):
+    """Phase 12: the distributed slab on one card.  P = 2, then P = 4,
+    ranks spawned on cuda:0 with a gloo group (NCCL refuses two ranks on
+    one card) and ``communication="rdma"``; every check and launch count
+    of a child comes back here, and a child's failure fails the run.
+    The P = 2 ranks also step packed NS3D, against ``U_packed`` (phase
+    5's state, handed over in a file under build/)."""
+    import multiprocessing as mp
+    import tempfile
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    ns_file = None
+    if U_packed is not None:
+        ns_file = os.path.join(tmp, "ns3d_p1.npy")
+        np.save(ns_file, U_packed.cpu().numpy())
+    for P in (2, 4):
+        t0 = time.perf_counter()
+        q = ctx.Queue()
+        procs = [ctx.Process(target=dist_child, args=(
+            r, P, os.path.join(tmp, f"store{P}"),
+            ns_file if P == 2 else None, q, n, device)) for r in range(P)]
+        for p in procs:
+            p.start()
+        got = {}
+        for _ in procs:
+            try:
+                r, res = q.get(timeout=QTIMEOUT)
+            except Exception:
+                break
+            got[r] = res
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+        check(sorted(got) == list(range(P)) and all(
+            isinstance(v, dict) for v in got.values()) and all(
+            p.exitcode == 0 for p in procs),
+              f"phase 12 P={P}: every rank ran to its end (exit codes "
+              f"{[p.exitcode for p in procs]})")
+        for r in sorted(got):
+            res = got[r]
+            if not isinstance(res, dict):
+                print(f"phase 12 P={P} rank {r} failed:\n{res}", flush=True)
+                continue
+            for ok, what in res["checks"]:
+                check(ok, what)
+            for label, counts in res["counts"].items():
+                for k, c in counts.items():
+                    launches[k] += c
+                if r == 0:
+                    print(f"phase 12 P={P} {label} launches (rank 0): "
+                          f"{ {k: c for k, c in counts.items() if c} }",
+                          flush=True)
+        if 0 in got and isinstance(got[0], dict):
+            res = got[0]
+            print(f"time phase 12 P={P} (ranks time-slicing one card; not a "
+                  f"scaling figure): R2C {n}^3 rdma round trip "
+                  f"{res["times"]["R2C round trip ms"]:.3f} ms, fence "
+                  f"(synchronise + barrier) share "
+                  f"{res['times']['R2C round trip fence share']:.3f}"
+                  + ("" if "ns_times" not in res else
+                     f"; packed NS3D {n}^3 RK4 "
+                     f"{res['ns_times']['ms/step']:.3f} ms/step, fence share "
+                     f"{res['ns_times']['fence share']:.3f}")
+                  + f"; phase wall {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    shutil.rmtree(tmp)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1189,6 +1587,7 @@ def main():
     import mpifft4py_tpu_torch as T
     from mpifft4py_tpu_torch.ops import _build, dense as dn, fft3d as p3
     from mpifft4py_tpu_torch.ops import zdif as zd
+    from mpifft4py_tpu_torch.parallel import rdma
     from mpifft4py_tpu_torch.line import R2C as LineR2C
     from mpifft4py_tpu_torch.slab import C2C, R2C
     from mpifft4py_tpu_torch.models import (Boussinesq3D, MHD3D,
@@ -1216,24 +1615,25 @@ def main():
 
     rng = np.random.default_rng(SEED)
     kern = kernel_phase(torch, p3, zd, dn, rng)
+    kern.update(peer_kernel_phase(torch, rdma, rng))
     envelope_phase(torch, p3)
 
     # the main path: each of its paths runs with the counts set to 0 just
     # before it and read just after
-    launches = dict.fromkeys(p3.LAUNCHES, 0)
+    launches = dict.fromkeys(_dist_counts(p3, rdma), 0)
 
     def path(phase, *args):
-        p3.reset_launches()
+        _reset_counts(p3, rdma)
         out = phase(*args)
-        for k, n in p3.LAUNCHES.items():
+        for k, n in _dist_counts(p3, rdma).items():
             launches[k] += n
         return out
 
     path(transform_phase, torch, p3, R2C, rng)
     path(padded_transform_phase, torch, p3, R2C, C2C, rng)
     Uc, Ud, ms_c, peak_c = path(solver_phase, torch, p3, R2C, NavierStokes3D)
-    steps256 = path(packed_solver_phase, torch, p3, R2C, NavierStokes3D, Uc,
-                    Ud, ms_c, peak_c)
+    steps256, U_packed = path(packed_solver_phase, torch, p3, R2C,
+                              NavierStokes3D, Uc, Ud, ms_c, peak_c)
     path(padded_solver_phase, torch, p3, R2C, NavierStokes3D, ms_c, peak_c)
     path(family_phase, torch, p3, {"R2C": R2C, "VV": VorticityVelocity3D,
                                    "MHD": MHD3D, "Boussinesq": Boussinesq3D},
@@ -1244,6 +1644,10 @@ def main():
     path(serial_phase, torch, p3, T)
     path(dense_phase, torch, p3, dn)
     path(wide_packed_phase, torch, p3, R2C, NavierStokes3D, steps256)
+    # phase 12: the children count their own main-path launches
+    torch.cuda.empty_cache()
+    dist_phase(torch, launches, U_packed)
+    del U_packed
     for k, n in launches.items():
         check(n > 0, f"main path launched {k} {n} times")
 

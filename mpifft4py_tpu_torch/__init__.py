@@ -17,6 +17,16 @@ hand-written 3D chain inside the kernels' envelope) and the dense per-axis
 kernels of ``ops.dense``.  The kernels take every grid the reference's
 kernels take (``ops.fft3d.supported_c2c``/``supported_r2c``).
 
+At P > 1 (a ``torch.distributed`` group, one process a rank: ``comm=None``
+takes the initialised default group) ``slab.R2C`` and ``slab.C2C`` cut
+physical space along axis 0 and spectral space along axis 1, with every
+``dealias`` and the packed interface, and ``NavierStokes3D`` steps in both
+layouts; ``communication`` is "alltoall"/"pipelined" (the group's
+``all_to_all_single``, NCCL on the card) or "rdma" (the hand-written
+peer-memory kernels of ``parallel.rdma``, rows 23–25: P processes may
+share one card over a gloo group).  The rest of the family, ``line`` and
+the pencil wait at P > 1 (ROADMAP.md queue 1 item 5).
+
     from mpifft4py_tpu_torch.slab import R2C, C2C
     from mpifft4py_tpu_torch.models import MHD3D, NavierStokes2D, NavierStokes3D
     FFT = R2C(N, L, None, "single", device="cuda")
@@ -32,6 +42,10 @@ kernels take (``ops.fft3d.supported_c2c``/``supported_r2c``).
     from mpifft4py_tpu_torch import rfftn, irfftn, dct, zeros
     u = zeros((640, 640, 640), np.float32)          # on the card
     u_hat = rfftn(u)                                # (640, 640, 321)
+    # P ranks (torchrun --nproc-per-node=P), each on its own card:
+    from mpifft4py_tpu_torch.parallel import runtime
+    runtime.initialize()                            # NCCL, LOCAL_RANK's card
+    FFT = R2C(N, L, None, "single")                 # (N0/P, N1, N2) a rank
 
 ``save_field``/``load_field``/``save_state``/``load_state`` of the
 reference's package surface are not ported yet (ROADMAP.md queue 1 item 2).
@@ -43,7 +57,8 @@ the solver family in ``tests/test_torch_{vv,mhd,boussinesq}.py``, the 2D
 family in ``tests/test_torch_ns2d.py``, the envelope in
 ``tests/test_torch_envelope.py``, the dense tier in
 ``tests/test_torch_dense.py`` and the serial tier in
-``tests/test_torch_serial_fft.py``);
+``tests/test_torch_serial_fft.py``, the slab at P > 1 in
+``tests/test_torch_slab_dist.py``, over a pool of gloo ranks);
 ``python3 chip_smoke.py`` on the card, and ``python3 profile_step.py`` for
 the steps' times and profiles.
 """
@@ -58,7 +73,7 @@ from .serialFFT import (  # noqa: F401,E402
     rfft, irfft, rfft2, irfft2, rfftn, irfftn,
     dct, idct,
 )
-from . import line, slab  # noqa: F401,E402
+from . import line, parallel, slab  # noqa: F401,E402
 from .models import (Boussinesq3D, MHD3D, NavierStokes2D,  # noqa: F401,E402
                      NavierStokes3D, VorticityVelocity3D)
 

@@ -39,6 +39,10 @@ class R2C(BaseFFT):
     ndim = 2
 
     def _validate(self):
+        if self.P > 1:
+            raise NotImplementedError(
+                f"line.R2C at P = {self.P}: the 2D line decomposition is "
+                f"ported at P == 1 only (ROADMAP.md queue 1 item 5)")
         for n in self.N:
             if n % 2:
                 raise ValueError(f"grid sizes must be even, got {tuple(self.N)}")

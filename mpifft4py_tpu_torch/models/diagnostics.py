@@ -4,7 +4,8 @@ Port of ``mpifft4py_tpu/models/diagnostics.py``: E(k) shell sums over the
 r2c spectrum with Hermitian weights (interior k2 modes count twice),
 computed on the state's device, for the complex state and for the packed
 (Sr, Si) pair (``*_packed``, from 1-D wavenumbers, with no complex or
-K-mesh materialised).
+K-mesh materialised).  At P > 1 each rank bins its own block and the
+shells (and the dissipation) are summed over the group.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ def energy_spectrum(FFT, U_hat) -> np.ndarray:
     e = (0.5 * torch.sum(U_hat.abs() ** 2, dim=0) * _hermitian_weights(FFT)
          / (ntot * ntot))
     out = torch.zeros(kmax + 1, dtype=e.dtype, device=e.device)
-    return out.index_add_(0, shell.ravel(), e.ravel()).cpu().numpy()
+    out.index_add_(0, shell.ravel(), e.ravel())
+    return FFT._all_reduce(out).cpu().numpy()
 
 
 def dissipation(FFT, U_hat, nu: float) -> float:
@@ -46,13 +48,15 @@ def dissipation(FFT, U_hat, nu: float) -> float:
     k2 = torch.sum(K * K, dim=0)
     e = (torch.sum(U_hat.abs() ** 2, dim=0) * _hermitian_weights(FFT)
          / (ntot * ntot))
-    return float(nu * torch.sum(k2 * e))
+    return float(FFT._all_reduce(nu * torch.sum(k2 * e)))
 
 
 def _packed_ksq(FFT, L):
-    """|K|² over the packed layout (integer wavenumbers for ``L=None``)."""
+    """|K|² over this rank's packed block (integer wavenumbers for
+    ``L=None``)."""
     return spectral.ksq(*spectral.factored_wavenumbers(
-        FFT.N, L, int(FFT.N[2]) // 2, device=FFT.device))
+        FFT.N, L, int(FFT.N[2]) // 2, device=FFT.device, rank=FFT.rank,
+        P=FFT.P))
 
 
 def energy_spectrum_packed(FFT, pair) -> np.ndarray:
@@ -68,7 +72,8 @@ def energy_spectrum_packed(FFT, pair) -> np.ndarray:
                         .to(torch.int64), 0, kmax)
     e = 0.5 * torch.sum(sr * sr + si * si, dim=0) * w / (ntot * ntot)
     out = torch.zeros(kmax + 1, dtype=e.dtype, device=e.device)
-    return out.index_add_(0, shell.ravel(), e.ravel()).cpu().numpy()
+    out.index_add_(0, shell.ravel(), e.ravel())
+    return FFT._all_reduce(out).cpu().numpy()
 
 
 def dissipation_packed(FFT, pair, nu: float) -> float:
@@ -77,4 +82,4 @@ def dissipation_packed(FFT, pair, nu: float) -> float:
     ntot = float(np.prod([int(n) for n in FFT.N]))
     w = spectral.packed_hermitian_weights(FFT.N, FFT.device)
     e = torch.sum(sr * sr + si * si, dim=0) * w / (ntot * ntot)
-    return float(nu * torch.sum(_packed_ksq(FFT, FFT.L) * e))
+    return float(FFT._all_reduce(nu * torch.sum(_packed_ksq(FFT, FFT.L) * e)))

@@ -9,7 +9,11 @@ Rotational form, velocity in spectral space:
     P(F̂) = F̂ − K (K·F̂)/|K|²                   (Leray projection).
 
 PyTorch runs eagerly: a step is a chain of tensor calls on the state's
-device, and ``run`` is a Python loop.
+device, and ``run`` is a Python loop.  At P > 1 (a slab ``R2C`` over a
+process group) every rank steps its own block of the state — spectral
+k1 is cut, so the 1-D k1 vectors and masks are this rank's slices — and
+every sum over the field (energies, the band forcing's norm) is
+all-reduced over the group.  Only ``NavierStokes3D`` runs at P > 1 so far.
 
 * ``spectral_layout="complex"``: the state is a complex (3, N0, N1, Nf)
   tensor; each right-hand side does three batched transform calls
@@ -65,10 +69,16 @@ class SpectralSolver:
     wavenumbers, the AB2 carry, ``run`` and the packed layout's fused
     right-hand-side helpers.  Subclasses implement ``rhs(state, k0, k1,
     k2)`` and, for the packed layout, ``rhs_packed(Sr, Si, k0, k1, k2, m0,
-    m1, m2)``."""
+    m1, m2)``; a subclass that runs at P > 1 sets ``_distributed``."""
+
+    _distributed = False
 
     def _init_solver(self, FFT, dt, dealias, integrator,
                      spectral_layout: str = "complex"):
+        if FFT.P > 1 and not self._distributed:
+            raise NotImplementedError(
+                f"{type(self).__name__} at P = {FFT.P}: only NavierStokes3D "
+                f"is ported to P > 1 (ROADMAP.md queue 1 item 5)")
         if spectral_layout not in ("complex", "packed"):
             raise ValueError(f"spectral_layout must be 'complex' or 'packed', "
                              f"got {spectral_layout!r}")
@@ -96,12 +106,12 @@ class SpectralSolver:
                         if dealias == "3/2-rule" else self._bwd)
 
     def _factored_k(self):
-        """1-D scaled wavenumbers (k0, k1, k2) matching
-        global_complex_shape(), in FFT.float."""
+        """1-D scaled wavenumbers (k0, k1, k2) matching complex_shape()
+        (k1 this rank's block), in FFT.float."""
         FFT = self.FFT
         return spectral.factored_wavenumbers(
             FFT.N, FFT.L, FFT.global_complex_shape()[2], FFT.float,
-            FFT.device)
+            FFT.device, FFT.rank, FFT.P)
 
     def _complex_k_args(self):
         """(k0, k1, k2) of the complex layout, whatever the solver's own
@@ -131,14 +141,18 @@ class SpectralSolver:
                 "in the kernels' envelope, (N2/2) % 128 == 0 and "
                 "dealias='2/3-rule'")
 
-    def _packed_arrays(self):
+    def _packed_arrays(self, rank=None, P=None):
         """The packed RHS's factored state: 1-D scaled wavenumbers
         (k0, k1, k2), k2 = 0..h−1, and 1-D 2/3-rule masks (m0, m1, m2), on
-        the device.  No (3, N0, N1, h) K array is ever materialised."""
+        the device, k1/m1 this rank's block (the whole axis with ``rank=0,
+        P=1``).  No (3, N0, N1, h) K array is ever materialised."""
         FFT = self.FFT
+        rank = FFT.rank if rank is None else rank
+        P = FFT.P if P is None else P
         return (spectral.factored_wavenumbers(FFT.N, FFT.L, int(FFT.N[2]) // 2,
-                                              torch.float32, FFT.device)
-                + spectral.packed_dealias_masks(FFT.N, FFT.device))
+                                              torch.float32, FFT.device,
+                                              rank, P)
+                + spectral.packed_dealias_masks(FFT.N, FFT.device, rank, P))
 
     def to_packed(self, U_hat):
         """complex state (3,) + global_complex_shape() -> the packed state,
@@ -148,9 +162,9 @@ class SpectralSolver:
 
     def from_packed(self, U):
         """The packed state (a (2, …) tensor or an (re, im) pair) -> the
-        complex (3,) + global_complex_shape() state."""
+        complex (3,) + complex_shape() state."""
         ur, ui = U
-        return p3.unpack_spectrum(ur, ui)
+        return self.FFT._unpack(ur, ui)
 
     def _parseval_component_energies(self):
         """A fn (Sr, Si) -> per-component Parseval energies
@@ -168,10 +182,11 @@ class SpectralSolver:
         return comp_e
 
     def _packed_component_energies(self, S) -> torch.Tensor:
-        """Per-component Parseval energies (C,) of a packed state."""
+        """Per-component Parseval energies (C,) of a packed state, summed
+        over the group."""
         if not hasattr(self, "_comp_e"):
             self._comp_e = self._parseval_component_energies()
-        return self._comp_e(S[0], S[1])
+        return self.FFT._all_reduce(self._comp_e(S[0], S[1]))
 
     def _packed_energy(self, U) -> torch.Tensor:
         return torch.sum(self._packed_component_energies(U))
@@ -186,7 +201,16 @@ class SpectralSolver:
                            biot_savart: bool = False):
         """(ifft(V̂), ifft(i K × V̂ [/|K|²])) of a packed 3-stack: one pass of
         the curl kernel over the state pair inverts both (the kernel's
-        order is curl first).  Views of one (6, N0, N1, N2) tensor."""
+        order is curl first; views of one (6, N0, N1, N2) tensor).  At
+        P > 1 the x inverse crosses the transpose, so the curl is pointwise
+        and two packed inverses follow (the reference's distributed
+        branch)."""
+        if self.FFT.P > 1:
+            cr, ci = p3._curl_pair(Vr, Vi, p3.kvecs(k0, k1, k2))
+            if biot_savart:
+                inv = p3.inv_ksq(k0, k1, k2)
+                cr, ci = cr * inv, ci * inv
+            return self._bwd_pk((Vr, Vi)), self._bwd_pk((cr, ci))
         W, V = p3.curl_irfft3d_packed(Vr, Vi, k0, k1, k2,
                                       self.FFT.global_real_shape(),
                                       biot_savart=biot_savart,
@@ -200,7 +224,11 @@ class SpectralSolver:
         (Sr, Si): the product rides the z/y forward kernels, the x forward
         the epilogue kernel (``mode`` "project" or "curl"; ``buoy`` =
         (θr, θi, Ri)).  Returns a (2, 3, N0, N1, h) tensor, or fills
-        ``out``."""
+        ``out``.  At P > 1 (NS3D: A × B, no rider) the slab's
+        ``nl_forward_epilogue_fn`` runs the same kernels around the
+        transpose."""
+        if self.FFT.P > 1:
+            return self._nl_dist(mode, visc, (A, B, Sr, Si), out)
         Fzr, Fzi = p3.cross_rfft_zy_packed(A, B, C, D)
         d = p3.fft_x_epilogue_packed(Fzr, Fzi, Sr, Si, *kargs, mode, visc,
                                      buoy=buoy, out=out)
@@ -217,6 +245,19 @@ class SpectralSolver:
                                      out=out)
         p3.purify_plane0_dus(d[0], d[1])
         return d
+
+    def _nl_dist(self, mode, visc, args, out):
+        """The slab's ``nl_forward_epilogue_fn`` (cached per key) on
+        ``args`` and the global 1-D wavenumbers and masks."""
+        plans = self.__dict__.setdefault("_nl_dist_plans", {})
+        key = (mode, float(visc))
+        if key not in plans:
+            plans[key] = self.FFT.nl_forward_epilogue_fn(
+                mode, visc, dealias=self.dealias)
+        if not hasattr(self, "_pk_global"):
+            self._pk_global = self._packed_arrays(rank=0, P=1)
+        d = plans[key](*args, *self._pk_global)
+        return d if out is None else out.copy_(d)
 
     def _rhs_state(self, V, *kargs):
         """The right-hand side of a state in this solver's layout."""
@@ -288,7 +329,8 @@ class SpectralSolver:
         w = _hermitian_weights(self.FFT)
         ntot = float(np.prod([int(n) for n in self.FFT.N]))
         mag = (S.real ** 2 + S.imag ** 2) * w
-        return 0.5 * self.staged_mean(mag) * mag.numel() / (ntot * ntot)
+        return self.FFT._all_reduce(
+            0.5 * self.staged_mean(mag) * mag.numel() / (ntot * ntot))
 
     def run(self, state, n_steps: int, monitor_every: Optional[int] = None):
         """``n_steps`` steps.  With ``monitor_every=k`` also returns the total
@@ -312,7 +354,7 @@ class SpectralSolver:
 
 
 class NavierStokes3D(SpectralSolver):
-    """Pseudo-spectral NS3D over a ``slab.R2C`` transform.
+    """Pseudo-spectral NS3D over a ``slab.R2C`` transform, at any P.
 
     Args:
       FFT: a ``slab.R2C`` instance.
@@ -327,6 +369,8 @@ class NavierStokes3D(SpectralSolver):
         constant-energy-injection band forcing f̂ = ε·û/(2·E_band) on modes
         k_lo ≤ |k| < k_hi.
     """
+
+    _distributed = True
 
     def __init__(self, FFT, nu: float, dt: float,
                  dealias: Optional[str] = "2/3-rule",
@@ -386,8 +430,9 @@ class NavierStokes3D(SpectralSolver):
             kny = float(np.pi * int(self.FFT.N[2]) / float(self.FFT.L[2]))
             w = torch.where((K2v == 0) | (K2v >= kny * (1.0 - 1e-6)), 1.0, 2.0)
             ntot = float(np.prod([int(n) for n in self.FFT.N]))
-            Eb = (torch.sum(torch.where(band, w * U_hat.abs() ** 2, 0.0))
-                  / (2.0 * ntot * ntot))
+            Eb = self.FFT._all_reduce(
+                torch.sum(torch.where(band, w * U_hat.abs() ** 2, 0.0))
+                / (2.0 * ntot * ntot))
             alpha = torch.where(Eb > 0, self.forcing_rate / (2.0 * Eb), 0.0)
             dU = dU + (alpha * band) * U_hat
         return dU
@@ -409,8 +454,9 @@ class NavierStokes3D(SpectralSolver):
             band = (ksq >= klo * klo) & (ksq < khi * khi)
             w = spectral.packed_hermitian_weights(self.FFT.N, Ur.device)
             ntot = float(np.prod([int(n) for n in self.FFT.N]))
-            Eb = (torch.sum(torch.where(band, w * (Ur * Ur + Ui * Ui), 0.0))
-                  / (2.0 * ntot * ntot))
+            Eb = self.FFT._all_reduce(
+                torch.sum(torch.where(band, w * (Ur * Ur + Ui * Ui), 0.0))
+                / (2.0 * ntot * ntot))
             alpha = torch.where(Eb > 0, self.forcing_rate / (2.0 * Eb), 0.0)
             dU[0].add_((alpha * band) * Ur)
             dU[1].add_((alpha * band) * Ui)
@@ -422,7 +468,10 @@ class NavierStokes3D(SpectralSolver):
         if self.spectral_layout == "packed":
             return self.energy_packed(U_hat)
         U = self._bwd(U_hat)
-        return float(0.5 * self.staged_mean(torch.sum(U * U, dim=0)))
+        e = 0.5 * self.staged_mean(torch.sum(U * U, dim=0))
+        if self.FFT.P > 1:      # equal blocks: the mean of the ranks' means
+            e = self.FFT._all_reduce(e) / self.FFT.P
+        return float(e)
 
     def rhs_with_state(self, U_hat):
         """The right-hand side with the stored wavenumber vectors, in the

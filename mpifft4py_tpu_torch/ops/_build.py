@@ -25,7 +25,7 @@ __all__ = ["load", "build_dir", "last_build_seconds", "ptxas_report"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fft_axis.cu", "packed_rfft.cu", "curl_ifft_x.cu",
            "cross_rfft_z.cu", "fft_x_epilogue.cu", "planar_rfft.cu",
-           "fft_last.cu")
+           "fft_last.cu", "peer_fft_x.cu", "peer_a2a.cu")
 HEADERS = ("fft_block.cuh", "packed_z.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,6 +69,14 @@ _SIGNATURES = {
     # x, y, tw, rows, n, stream (full length, odd n)
     "rfft_full_c64_launch": (_P,) * 3 + (_L, _I, _P),
     "irfft_full_c64_launch": (_P,) * 3 + (_L, _I, _P),
+    # the slab's peer-memory transposes (rows 23-25, parallel/rdma.py):
+    # peers, yr, yi, tw, n0, n1, h, P, my, comps, stream
+    "peer_fft_x_pull_launch": (_P,) * 4 + (_I,) * 6 + (_P,),
+    # peers, xr, xi, tw, n0, n1, h, P, my, comps, stream
+    "peer_ifft_x_push_launch": (_P,) * 4 + (_I,) * 6 + (_P,),
+    # x, peers, dst_off, P, my, outer, ns, mid, nc, inner, split_first,
+    # stream
+    "peer_a2a_launch": (_P, _P, _L, _I, _I) + (_L,) * 5 + (_I, _P),
 }
 
 _lib = None

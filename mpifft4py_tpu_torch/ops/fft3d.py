@@ -173,10 +173,15 @@ def fft_axis_planar_ref(xr, xi, axis: int, inverse: bool = False):
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def fft_axis_planar(xr, xi, axis: int, inverse: bool = False):
+def fft_axis_planar(xr, xi, axis: int, inverse: bool = False, out=None):
     """c2c DFT along a non-last ``axis`` of planar float32 arrays; the
-    inverse includes the 1/n scale."""
-    on_cpu = _check_float32(xr, xi)
+    inverse includes the 1/n scale.  ``out``: an (re, im) pair of
+    contiguous float32 tensors of the input's shape to write into (the
+    slab's zy stage writes into a peer-visible buffer); returned."""
+    on_cpu = _check_float32(xr, xi, *(out or ()))
+    if out is not None and any(o.shape != xr.shape for o in out):
+        raise ValueError(f"fft_axis_planar: out must be a pair of shape "
+                         f"{tuple(xr.shape)}")
     _check_pair(xr, xi)
     axis = axis % xr.ndim
     if axis == xr.ndim - 1:
@@ -185,10 +190,13 @@ def fft_axis_planar(xr, xi, axis: int, inverse: bool = False):
     if not supported_c2c(n):
         raise ValueError(f"fft_axis_planar: n={n} outside the kernel envelope")
     if on_cpu:
-        return fft_axis_planar_ref(xr, xi, axis, inverse)
+        yr, yi = fft_axis_planar_ref(xr, xi, axis, inverse)
+        return (yr, yi) if out is None else (out[0].copy_(yr),
+                                             out[1].copy_(yi))
     pre = math.prod(xr.shape[:axis])
     post = math.prod(xr.shape[axis + 1:])
-    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    yr, yi = out if out is not None else (torch.empty_like(xr),
+                                          torch.empty_like(xi))
     sign = 1 if inverse else -1
     tw = _twiddles(n, n, sign, xr.device)
     _launch("fft_axis", "fft_axis_launch", xr.data_ptr(), xi.data_ptr(),

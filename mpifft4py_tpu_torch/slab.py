@@ -1,32 +1,47 @@
-"""Slab decomposition of 3D FFTs, on one device.
+"""Slab decomposition of 3D FFTs.
 
-Port of ``mpifft4py_tpu/slab.py`` at P == 1 (the slab's single-device fast
-path): ``R2C`` and ``C2C`` over the shared ``_Slab3D``, as the reference's
-``_Slab3D`` serves both.  Scaling follows numpy: ``ifftn(fftn(u)) == u``.
+Port of ``mpifft4py_tpu/slab.py``: ``R2C`` and ``C2C`` over the shared
+``_Slab3D``, at any P (the ranks of the transform's process group, see
+``base.BaseFFT``).  The textbook slab pipeline:
+
+    forward:  local z and y transforms → transpose → local x transform
+    inverse:  local x inverse → transpose → local y and z inverses
+
+Physical space is cut along axis 0 (this rank holds (N0/P, N1, N2)),
+spectral space along axis 1 ((N0, N1/P, Nf)); the halved Hermitian axis is
+never cut.  Scaling follows numpy: ``ifftn(fftn(u)) == u``.
 
 ``dealias="2/3-rule"`` masks the spectrum.  ``dealias="3/2-rule"`` (Orszag
 padding, mpiFFT4py's ``padsize``) puts physical space on the padded grid
-M = padsize·N (``work_shape``): the forward truncates M → N, folding the
-split Nyquist back (and, for R2C, symmetrising the z-Nyquist plane to the
-exact alias sum), and scales by 1/padsize³; the backward pads N → M and
-scales by padsize³.
+M = padsize·N (``work_shape``): the forward truncates M → N stage by stage
+(so the transpose moves N-sized messages), folding the split Nyquist back
+(and, for R2C, symmetrising the z-Nyquist plane to the exact alias sum),
+and scales by 1/padsize³; the backward pads N → M and scales by padsize³.
 
 Two routes, chosen by a pure predicate on precision and the transformed
-grid (``_kernel_ok``, the counterpart of the reference's ``_pallas3d_ok``
-and ``_pallas_dist_padded_ok``):
+grid (``_kernel_ok``, the counterpart of the reference's ``_pallas3d_ok``,
+``_pallas_dist_ok`` and ``_pallas_dist_padded_ok``):
 
 * the kernel path (float32, every axis of N — or of M under the 3/2 rule —
   in the kernels' envelope): the planar chains of ``ops.fft3d``, on the
   card the hand-written CUDA kernels, on the CPU their plain twins through
-  the same glue;
+  the same glue.  The transpose moves planar float32 pairs; under
+  ``communication="rdma"`` R2C's x stage is rows 24/25
+  (``parallel.rdma``), every other transpose row 23;
 * otherwise (``"double"``, other sizes) ``ops.fft_core`` over ``torch.fft``,
-  as the reference falls back to ``jnp.fft``.
+  as the reference falls back to ``jnp.fft``; its transposes move complex
+  tensors, which ``"rdma"`` refuses (``ValueError``), as the reference's.
+
+R2C's packed plane k2 = 0 carries X0 + i·X_Nyquist; separating the riders
+needs conj(Q(−k0, −k1)) over the whole (k0, k1) plane, and k1 is cut, so
+that plane (1/h of the field) is all-gathered.
 
 The packed interface of R2C (``forward_packed_fn``/``backward_packed_fn``)
 hands out the packed planar pair itself, with no complex boundary; its
 envelope is the reference's (float32, ``(N2/2) % 128 == 0``, ``dealias``
 None or "2/3-rule"), so both packages accept and refuse the same
-configurations.
+configurations.  ``nl_forward_epilogue_fn`` is the packed solvers'
+nonlinear forward at any P.
 """
 
 from __future__ import annotations
@@ -37,8 +52,10 @@ import torch
 from .base import BaseFFT, _as_working
 from .ops import fft3d as p3
 from .ops import fft_core as fc
-from .utils.spectral import (dealias_cutoffs, flip_conj_plane, pad_full_axis,
-                             pad_half_axis, trunc_full_axis, trunc_half_axis)
+from .parallel import rdma
+from .parallel.mesh import check_divisible
+from .utils.spectral import (dealias_cutoffs, pad_full_axis, pad_half_axis,
+                             trunc_full_axis, trunc_half_axis)
 from .utils.transfer import device_put
 
 __all__ = ["R2C", "C2C"]
@@ -51,6 +68,8 @@ class _Slab3D(BaseFFT):
     ndim = 3
 
     def _validate(self):
+        check_divisible(self.N[0], self.P, "slab real axis 0")
+        check_divisible(self.N[1], self.P, "slab spectral axis 1")
         for n in self.N:
             if n % 2:
                 raise ValueError(f"grid sizes must be even, got {tuple(self.N)}")
@@ -69,67 +88,71 @@ class _Slab3D(BaseFFT):
     def _in_dtype(self) -> torch.dtype:
         return self.complex
 
-    # -- shapes (reference-parity helpers; local == global at P == 1) -------
+    # -- shapes (reference-parity helpers; "local" = this rank's block) -----
 
     def real_shape(self):
-        return tuple(int(n) for n in self.N)
+        return (int(self.N[0]) // self.P, int(self.N[1]), int(self.N[2]))
 
     def complex_shape(self):
-        return (int(self.N[0]), int(self.N[1]), self._lastf)
+        return (int(self.N[0]), int(self.N[1]) // self.P, self._lastf)
 
     def complex_shape_T(self):
         """Transposed (pre-Alltoall) spectral shape."""
-        return self.complex_shape()
+        return (int(self.N[0]) // self.P, int(self.N[1]), self._lastf)
 
     def complex_shape_I(self):
         """Alltoall send-view shape (P, Np0, Np1, lastf)."""
-        return (1,) + self.complex_shape()
+        return (self.P, int(self.N[0]) // self.P, int(self.N[1]) // self.P,
+                self._lastf)
 
     def global_real_shape(self):
-        return self.real_shape()
+        return tuple(int(n) for n in self.N)
 
     def global_complex_shape(self):
-        return self.complex_shape()
+        return (int(self.N[0]), int(self.N[1]), self._lastf)
 
     def real_shape_padded(self):
-        return tuple(int(m) for m in self.M)
+        return (int(self.M[0]) // self.P, int(self.M[1]), int(self.M[2]))
 
     def global_real_shape_padded(self):
-        return self.real_shape_padded()
+        return tuple(int(m) for m in self.M)
 
     def work_shape(self, dealias=None):
-        """Physical-space (fftn input / ifftn output) shape."""
+        """Physical-space (fftn input / ifftn output) local shape."""
         return self.real_shape_padded() if dealias == "3/2-rule" \
             else self.real_shape()
 
     def global_work_shape(self, dealias=None):
-        return self.work_shape(dealias)
+        return self.global_real_shape_padded() if dealias == "3/2-rule" \
+            else self.global_real_shape()
 
     def real_local_slice(self, rank: int = 0, padsize: float = 1.0):
+        Np0 = int(round(padsize * self.N[0])) // self.P
         N = [int(round(padsize * n)) for n in self.N]
-        return (slice(rank * N[0], (rank + 1) * N[0]), slice(0, N[1]),
+        return (slice(rank * Np0, (rank + 1) * Np0), slice(0, N[1]),
                 slice(0, N[2]))
 
     def complex_local_slice(self, rank: int = 0):
-        N1 = int(self.N[1])
-        return (slice(0, int(self.N[0])), slice(rank * N1, (rank + 1) * N1),
+        Np1 = int(self.N[1]) // self.P
+        return (slice(0, int(self.N[0])), slice(rank * Np1, (rank + 1) * Np1),
                 slice(0, self._lastf))
 
     # -- wavenumber and coordinate meshes, built on the device ---------------
 
     def _k_local(self, dtype):
-        """Spectral wavenumbers (k0, k1, k2) for the layout (N0, N1, lastf):
-        k2 is in fft layout for the full (C2C) last axis."""
+        """Spectral wavenumbers (k0, k1, k2) for the local layout (N0, Np1,
+        lastf): k1 is this rank's block, k2 in fft layout for the full
+        (C2C) last axis."""
         def full(n):
             j = torch.arange(n, device=self.device)
             return torch.where(j < n // 2, j, j - n).to(dtype)
         N0, N1, N2 = (int(n) for n in self.N)
         k2 = (full(N2) if self._lastf == N2
               else torch.arange(self._lastf, device=self.device).to(dtype))
-        return full(N0), full(N1), k2
+        return full(N0), self._block(full(N1), 0), k2
 
     def get_local_wavenumbermesh(self) -> torch.Tensor:
-        """(3,) + complex_shape() integer wavenumbers."""
+        """(3,) + complex_shape() integer wavenumbers (this rank's)."""
         return torch.stack(torch.meshgrid(*self._k_local(self.float),
                                           indexing="ij"))
 
@@ -175,9 +198,21 @@ class _Slab3D(BaseFFT):
             return self._bwd_padded_kernel(fu)
         return self._bwd_kernel(fu, dealias)
 
-    # -- the 3/2 rule's kernel chain (the P == 1 form of the reference's
-    #    ``_fwd_dist_pallas_padded``/``_bwd_dist_pallas_padded``); subclasses
-    #    supply the last-axis stage ----------------------------------------
+    # -- the plane-0 all-gather ---------------------------------------------------
+
+    def _flipconj_plane(self, qr, qi):
+        """conj(Q(−k0, −k1)) of a planar (…, N0, Np1) plane whose last axis
+        is cut over the group: gather the plane (1/h of the field), flip it,
+        keep this rank's block (the reference's ``_flipconj_plane_dist``)."""
+        if self.P == 1:
+            return p3._flipconj(qr, qi, (-2, -1))
+        gr, gi = self._all_gather((qr.contiguous(), qi.contiguous()), -1)
+        fr, fi = p3._flipconj(gr, gi, (-2, -1))
+        return self._block(fr, -1), self._block(fi, -1)
+
+    # -- the 3/2 rule's kernel chain (the reference's
+    #    ``_fwd_dist_pallas_padded``/``_bwd_dist_pallas_padded``);
+    #    subclasses supply the last-axis stage ------------------------------
 
     def _last_fwd_padded(self, u):
         raise NotImplementedError
@@ -186,30 +221,39 @@ class _Slab3D(BaseFFT):
         raise NotImplementedError
 
     def _fwd_padded_kernel(self, u):
-        """(…, M0, M1, M2) -> (…, N0, N1, lastf): the last-axis stage at M2
-        with its truncation and 1/padsize³ folded in, the y c2c at M1 then
-        the truncation to N1, the x c2c at M0 then to N0, then
-        ``_sym_nyq``; each stage runs at the widths the previous truncation
-        left."""
+        """(…, Mp0, M1, M2) -> (…, N0, Np1, lastf): the last-axis stage at
+        M2 with its truncation and 1/padsize³ folded in, the y c2c at M1
+        then the truncation to N1, the transpose, the x c2c at M0 then the
+        truncation to N0, then ``_sym_nyq``; each stage runs at the widths
+        the previous truncation left, and the transpose moves N-sized
+        messages."""
         N0, N1 = int(self.N[0]), int(self.N[1])
         yr, yi = self._last_fwd_padded(u)
-        ax = yr.ndim - 2
-        yr, yi = p3.fft_axis_planar(yr, yi, ax)
+        ax = yr.ndim - 3
+        yr, yi = p3.fft_axis_planar(yr, yi, ax + 1)
         yr, yi = (trunc_full_axis(a, -2, N1).contiguous() for a in (yr, yi))
-        yr, yi = p3.fft_axis_planar(yr, yi, ax - 1)
-        x = torch.complex(trunc_full_axis(yr, -3, N0),
-                          trunc_full_axis(yi, -3, N0))
-        return self._sym_nyq(x)
+
+        def x_stage(t):
+            ar, ai = p3.fft_axis_planar(t[0].contiguous(), t[1].contiguous(),
+                                        ax)
+            return trunc_full_axis(ar, -3, N0), trunc_full_axis(ai, -3, N0)
+        yr, yi = self._stage((yr, yi), ax + 1, ax, x_stage,
+                             pipeline_axis=ax + 2)
+        return self._sym_nyq(torch.complex(yr, yi))
 
     def _bwd_padded_kernel(self, fu):
-        """(…, N0, N1, lastf) -> (…, M0, M1, M2), the mirror: pad x to M0
-        and run the x inverse, pad y to M1 and run the y inverse, then the
-        last-axis stage with its pad to M2 and padsize³ folded in."""
+        """(…, N0, Np1, lastf) -> (…, Mp0, M1, M2), the mirror: pad x to M0
+        and run the x inverse, the transpose, pad y to M1 and run the y
+        inverse, then the last-axis stage with its pad to M2 and padsize³
+        folded in."""
         M0, M1 = int(self.M[0]), int(self.M[1])
         ax = fu.ndim - 3
-        yr, yi = (pad_full_axis(a, -3, M0).contiguous()
-                  for a in (fu.real, fu.imag))
-        yr, yi = p3.fft_axis_planar(yr, yi, ax, inverse=True)
+
+        def x_stage(t):
+            ar, ai = (pad_full_axis(a, -3, M0).contiguous() for a in t)
+            return p3.fft_axis_planar(ar, ai, ax, inverse=True)
+        yr, yi = self._stage((fu.real, fu.imag), ax, ax + 1,
+                             pipeline_axis=ax + 2, pre_fn=x_stage)
         yr, yi = (pad_full_axis(a, -2, M1).contiguous() for a in (yr, yi))
         yr, yi = p3.fft_axis_planar(yr, yi, ax + 1, inverse=True)
         return self._last_bwd_padded(yr, yi)
@@ -234,33 +278,49 @@ class _Slab3D(BaseFFT):
 
     def _fwd_torch(self, u, dealias):
         x = self._fft_yz(u)                                   # (…, W0, W1, ·)
+        ax = x.ndim - 3
         if dealias == "3/2-rule":
+            N0 = int(self.N[0])
             x = self._trunc_last(trunc_full_axis(x, -2, int(self.N[1])))
-            x = trunc_full_axis(fc.fft(x, axis=-3), -3, int(self.N[0]))
+            x = self._stage(x, ax + 1, ax, lambda y: trunc_full_axis(
+                fc.fft(y, axis=-3), -3, N0), pipeline_axis=ax + 2)
             return self._sym_nyq(x) * (1.0 / self.padsize ** 3)
-        x = fc.fft(x, axis=-3)
+        x = self._stage(x, ax + 1, ax, lambda y: fc.fft(y, axis=-3),
+                        pipeline_axis=ax + 2)
         return self._masked(x) if dealias == "2/3-rule" else x
 
     def _bwd_torch(self, fu, dealias):
+        ax = fu.ndim - 3
         if dealias == "2/3-rule":
             fu = self._masked(fu)
         if dealias == "3/2-rule":
-            x = fc.ifft(pad_full_axis(fu, -3, int(self.M[0])), axis=-3)
+            M0 = int(self.M[0])
+            x = self._stage(fu, ax, ax + 1, pipeline_axis=ax + 2,
+                            pre_fn=lambda y: fc.ifft(
+                                pad_full_axis(y, -3, M0), axis=-3))
             x = self._pad_last(pad_full_axis(x, -2, int(self.M[1])))
             return self._ifft_yz(x, self.real_shape_padded()) \
                 * self.padsize ** 3
-        return self._ifft_yz(fc.ifft(fu, axis=-3), self.real_shape())
+        x = self._stage(fu, ax, ax + 1, pipeline_axis=ax + 2,
+                        pre_fn=lambda y: fc.ifft(y, axis=-3))
+        return self._ifft_yz(x, self.real_shape())
+
+    def _check_padded(self, dealias):
+        self._check_dealias(dealias)
+        if dealias == "3/2-rule":
+            check_divisible(self.M[0], self.P, "slab padded axis 0")
 
     # -- public transforms --------------------------------------------------------
 
     def forward_fn(self, dealias=None):
-        """The raw forward, (…,) + work_shape(dealias) -> (…,) +
-        complex_shape(); leading axes batch."""
-        self._check_dealias(dealias)
+        """The raw forward of this rank's block, (…,) + work_shape(dealias)
+        -> (…,) + complex_shape(); leading axes batch.  At P > 1 every rank
+        of the group calls it together."""
+        self._check_padded(dealias)
         return lambda u: self._fwd_local(u, dealias)
 
     def backward_fn(self, dealias=None):
-        self._check_dealias(dealias)
+        self._check_padded(dealias)
         return lambda fu: self._bwd_local(fu, dealias)
 
     def fftn(self, u, fu=None, dealias=None):
@@ -317,7 +377,7 @@ class R2C(_Slab3D):
         return (self._padded_kernel_ok() if dealias == "3/2-rule"
                 else self._kernel3d_ok())
 
-    # -- the packed interface (P == 1) ------------------------------------------
+    # -- the packed pipeline (the reference's ``_PackedDist1D``) ------------------
 
     @property
     def packed_z_perm(self):
@@ -325,6 +385,69 @@ class R2C(_Slab3D):
         natural 0..h−1 order (the reference's zdif lane order at N2 >= 512
         does not carry over)."""
         return None
+
+    def _peer_kernels(self, t) -> bool:
+        """Rows 24/25 carry the x stage: "rdma" at P > 1 on the card."""
+        return self._peers is not None and t.device.type == "cuda"
+
+    def _pair_fwd(self, u):
+        """real (…, Np0, N1, N2) -> packed planar pair (…, N0, Np1, h), all
+        three axes transformed: the packed z r2c and the y c2c, then the
+        transpose and the x c2c — fused in row 24 under "rdma" (the y stage
+        writes straight into this rank's symmetric buffer)."""
+        u = u.contiguous()
+        off = u.ndim - 3
+        yr, yi = p3.rfft_last_packed(u)
+        if self._peers is not None:
+            out = (self._peers.x_planes(yr.shape) if self._peer_kernels(u)
+                   else None)
+            yr, yi = p3.fft_axis_planar(yr, yi, off + 1, out=out)
+            return rdma.fused_transpose_fft_x(yr, yi, self._peers)
+        yr, yi = p3.fft_axis_planar(yr, yi, off + 1)
+        return self._stage(
+            (yr, yi), off + 1, off,
+            lambda t: p3.fft_axis_planar(t[0].contiguous(),
+                                         t[1].contiguous(), off),
+            pipeline_axis=off + 2)
+
+    def _pair_bwd(self, pair):
+        """packed planar pair (…, N0, Np1, h) -> real (…, Np0, N1, N2): the
+        x inverse and the transpose (row 25 under "rdma"), then the y
+        inverse and the packed z c2r.  Takes the pair as one tuple and
+        drops it, so the input is freed once the x stage has run."""
+        yr, yi = pair
+        del pair
+        off = yr.ndim - 3
+        if self._peers is not None:
+            yr, yi = rdma.fused_ifft_x_transpose(yr.contiguous(),
+                                                 yi.contiguous(), self._peers)
+        else:
+            yr, yi = self._stage(
+                (yr, yi), off, off + 1, pipeline_axis=off + 2,
+                pre_fn=lambda t: p3.fft_axis_planar(
+                    t[0].contiguous(), t[1].contiguous(), off, inverse=True))
+        return p3.fused_zy_bwd(yr.contiguous(), yi.contiguous(),
+                               int(self.N[2]))
+
+    def _unpack(self, yr, yi):
+        """packed pair (…, N0, Np1, h) -> complex (…, N0, Np1, h + 1): the
+        plane-0 riders separated over the gathered (k0, k1) plane."""
+        qr, qi = yr[..., 0], yi[..., 0]
+        cr, ci = self._flipconj_plane(qr, qi)
+        p0 = torch.complex(0.5 * (qr + cr), 0.5 * (qi + ci))
+        pny = torch.complex(0.5 * (qi - ci), -0.5 * (qr - cr))
+        body = torch.complex(yr[..., 1:], yi[..., 1:])
+        return torch.cat([p0[..., None], body, pny[..., None]], dim=-1)
+
+    def _purify(self, yr, yi):
+        """Drop the Nyquist rider from packed plane 0 in place (→ X0
+        exactly): ``ops.fft3d.purify_plane0_dus`` over the gathered
+        plane."""
+        qr, qi = yr[..., 0], yi[..., 0]
+        cr, ci = self._flipconj_plane(qr, qi)
+        qr.copy_(0.5 * (qr + cr))
+        qi.copy_(0.5 * (qi + ci))
+        return yr, yi
 
     def _packed_iface_ok(self, dealias) -> bool:
         """The reference's envelope of the packed interface, on the port's
@@ -335,47 +458,100 @@ class R2C(_Slab3D):
 
     def _packed_gate_is_serial(self, dealias) -> bool:
         """Entry gate of the packed interface: raises outside the envelope;
-        True (the serial kernel chain serves it: P == 1)."""
+        True where the serial chain serves it (P == 1), False where the
+        pair crosses the transpose."""
         if not self._packed_iface_ok(dealias):
             raise ValueError(
                 "packed interface needs a float32 R2C with every axis in the "
                 "kernels' envelope, (N2/2) % 128 == 0, and dealias in "
                 "(None, '2/3-rule')")
-        return True
+        return self.P == 1
 
     def _packed_mask_local(self, h):
-        """2/3-rule mask (N0, N1, h) over the packed pair (k2 = 0..h−1)."""
+        """2/3-rule mask (N0, Np1, h) over the local packed pair (k2 =
+        0..h−1)."""
         return self._dealias_local()[..., :h]
 
     def forward_packed_fn(self, dealias=None):
-        """real (…, N0, N1, N2) -> packed planar pair (…, N0, N1, N2/2), no
-        complex boundary.  Plane k2 = 0 carries X0 + i·X_Nyquist; with the
-        2/3 rule the rider is purified away and the pair is the masked
+        """real (…, Np0, N1, N2) -> packed planar pair (…, N0, Np1, N2/2),
+        no complex boundary.  Plane k2 = 0 carries X0 + i·X_Nyquist; with
+        the 2/3 rule the rider is purified away and the pair is the masked
         spectrum on k2 = 0..h−1.  Leading dims batch."""
         self._packed_gate_is_serial(dealias)
         return lambda u: self._fwd_packed(u, dealias)
 
     def _fwd_packed(self, u, dealias):
-        yr, yi = p3.rfft3d_packed(u.contiguous())
+        yr, yi = self._pair_fwd(u)
         if dealias == "2/3-rule":
-            p3.purify_plane0_dus(yr, yi)
+            self._purify(yr, yi)
             keep = self._packed_mask_local(yr.shape[-1])
             yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
         return yr, yi
 
     def backward_packed_fn(self, dealias=None):
         """Inverse of ``forward_packed_fn`` (same envelope): a pair (or a
-        (2, …) tensor) -> real (…, N0, N1, N2)."""
+        (2, …) tensor) -> real (…, Np0, N1, N2)."""
         self._packed_gate_is_serial(dealias)
-        s = self.real_shape()
 
         def bwd(pair):
             yr, yi = pair
             if dealias == "2/3-rule":
                 keep = self._packed_mask_local(yr.shape[-1])
                 yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
-            return p3.irfft3d_packed(yr.contiguous(), yi.contiguous(), s)
+            return self._pair_bwd((yr, yi))
         return bwd
+
+    # -- the packed solvers' nonlinear forward ---------------------------------------
+
+    def _nl_dist_ok(self, dealias) -> bool:
+        """Gate of ``nl_forward_epilogue_fn``: the packed envelope, the 2/3
+        rule, and the x-epilogue kernel's N0."""
+        return (dealias == "2/3-rule" and self._packed_iface_ok(dealias)
+                and p3.fft_x_epilogue_ok(int(self.N[0])))
+
+    def nl_forward_epilogue_fn(self, mode: str, visc: float, op: str = "cross",
+                               ri=None, dealias="2/3-rule"):
+        """The packed solvers' whole nonlinear forward at any P: the product
+        with the packed z r2c and the y c2c (rows 12/15's kernel, then row
+        1), the transpose (row 23 under "rdma"), the x c2c with the mask,
+        the ``mode`` epilogue and −visc·k²·S on this rank's k1/m1 block
+        (row 14), then the plane-0 purify over the gathered plane.  Returns
+        a function
+
+            (A, B[, C, D][, Tr, Ti], Sr, Si, k0, k1, k2, m0, m1, m2) -> d
+
+        with A/B/C/D this rank's physical 3-stacks (B a (1, …) field for
+        op="mul"), (Sr, Si) the packed state (a 3-stack, a 1-stack for mode
+        "div"), (Tr, Ti) the buoyancy rider (``ri`` set), and the GLOBAL
+        1-D wavenumber/mask vectors (k1/m1 are cut here).  ``d`` is a
+        (2, ns, N0, Np1, h) tensor whose [0]/[1] are the increment's re/im
+        planes."""
+        if not self._nl_dist_ok(dealias):
+            raise ValueError("nl_forward_epilogue_fn needs the packed "
+                             "interface's envelope and dealias='2/3-rule'")
+        if op not in ("cross", "cross2", "mul"):
+            raise ValueError(f"op must be 'cross', 'cross2' or 'mul', got "
+                             f"{op!r}")
+        nphys = 4 if op == "cross2" else 2
+
+        def fn(*xs):
+            phys, xs = xs[:nphys], xs[nphys:]
+            buoy = None
+            if ri is not None:
+                buoy, xs = (xs[0], xs[1], ri), xs[2:]
+            sr, si, k0, k1, k2, m0, m1, m2 = xs
+            if op == "mul":
+                fzr, fzi = p3.mul_rfft_zy_packed(*phys)
+            else:
+                fzr, fzi = p3.cross_rfft_zy_packed(*phys)
+            fzr, fzi = self._stage((fzr, fzi), 2, 1, pipeline_axis=3)
+            d = p3.fft_x_epilogue_packed(
+                fzr.contiguous(), fzi.contiguous(), sr, si, k0,
+                self._block(k1, 0), k2, m0, self._block(m1, 0), m2, mode,
+                visc, buoy=buoy)
+            self._purify(d[0], d[1])
+            return d
+        return fn
 
     # -- the kernel path ---------------------------------------------------------
 
@@ -385,12 +561,12 @@ class R2C(_Slab3D):
             # the Nyquist rider, mask the pair), emit a zero Nyquist column
             x = torch.complex(*self._fwd_packed(u, dealias))
             return torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
-        return p3.rfft3d(u.contiguous())
+        return self._unpack(*self._pair_fwd(u))
 
     def _bwd_kernel(self, fu, dealias):
         if dealias == "2/3-rule":
             fu = self._masked(fu)
-        return p3.irfft3d(fu, self.real_shape())
+        return self._pair_bwd(p3.pack_spectrum(fu))
 
     def _last_fwd_padded(self, u):
         """The z r2c at M2 into Nf columns, the truncation's Nyquist ×2 and
@@ -407,10 +583,12 @@ class R2C(_Slab3D):
     def _sym_nyq(self, x):
         """Hermitian-symmetrise the z-Nyquist plane of a padded forward, in
         place: the truncation doubled it, the exact alias sum is
-        q + conj(q(−k0, −k1)) (the reference's ``_sym_nyq`` at P == 1).
-        ``x`` is the forward's own tensor."""
+        q + conj(q(−k0, −k1)) (the reference's ``_sym_nyq``; k1 is cut, so
+        the plane is gathered as a planar pair).  ``x`` is the forward's
+        own tensor."""
         q = x[..., -1]
-        q.copy_(0.5 * (q + flip_conj_plane(q, (-2, -1))))
+        fr, fi = self._flipconj_plane(q.real, q.imag)
+        q.copy_(0.5 * (q + torch.complex(fr, fi)))
         return x
 
     # -- the torch.fft route -----------------------------------------------------
@@ -439,8 +617,8 @@ class C2C(_Slab3D):
     """
 
     def shard_real(self, u) -> torch.Tensor:
-        """A host array as a (complex) physical-space field on the device."""
-        return device_put(u, self.complex, self.device)
+        """This rank's block of a global (complex) physical-space array."""
+        return device_put(self._block(u, -3), self.complex, self.device)
 
     def _kernel_ok(self, dealias) -> bool:
         """float32 and every axis of the transformed grid (M under the 3/2
@@ -450,13 +628,30 @@ class C2C(_Slab3D):
                 and all(p3.supported_c2c(int(n)) for n in dims))
 
     def _fwd_kernel(self, u, dealias):
-        x = p3.cfft3d(u)
+        """The last-axis c2c, the y c2c, the transpose and the x c2c (the
+        reference's ``_fwd_dist_pallas``; ``ops.fft3d.cfft3d`` at P == 1)."""
+        ax = u.ndim - 3
+        yr, yi = p3.fft_last_planar_c2c(u.real.contiguous(),
+                                        u.imag.contiguous())
+        yr, yi = p3.fft_axis_planar(yr, yi, ax + 1)
+        x = torch.complex(*self._stage(
+            (yr, yi), ax + 1, ax,
+            lambda t: p3.fft_axis_planar(t[0].contiguous(),
+                                         t[1].contiguous(), ax),
+            pipeline_axis=ax + 2))
         return self._masked(x) if dealias == "2/3-rule" else x
 
     def _bwd_kernel(self, fu, dealias):
         if dealias == "2/3-rule":
             fu = self._masked(fu)
-        return p3.cfft3d(fu, inverse=True)
+        ax = fu.ndim - 3
+        yr, yi = self._stage(
+            (fu.real, fu.imag), ax, ax + 1, pipeline_axis=ax + 2,
+            pre_fn=lambda t: p3.fft_axis_planar(
+                t[0].contiguous(), t[1].contiguous(), ax, inverse=True))
+        yr, yi = p3.fft_axis_planar(yr.contiguous(), yi.contiguous(), ax + 1,
+                                    inverse=True)
+        return torch.complex(*p3.fft_last_planar_c2c(yr, yi, inverse=True))
 
     def _last_fwd_padded(self, u):
         """The z c2c at M2 with 1/padsize³ folded in, then the truncation

@@ -467,3 +467,115 @@ def test_dense_rfft_irfft_match_twin(cuda, n):
     assert float((back - x).abs().max()) < 1e-6 * float(x.abs().max())
     assert p3.LAUNCHES["dense_rfft_last"] == before["dense_rfft_last"] + 1
     assert p3.LAUNCHES["dense_irfft_last"] == before["dense_irfft_last"] + 2
+
+
+# -- rows 23-25: the peer-memory transposes, P ranks emulated in-process ------
+#
+# A SymmetricBuffer.local table holds P tensors of this process; calling a
+# kernel once with each ``my`` does what P ranks do, one launch each.
+
+from mpifft4py_tpu_torch.parallel import rdma  # noqa: E402
+
+
+def _blocks(shape, P, device):
+    """Per-rank inputs whose every element names its rank, its block and
+    its index, so a block in the wrong slot shows."""
+    base = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    return [torch.from_numpy(base + 1e5 * r).to(device) for r in range(P)]
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("shape,split,concat", [((8, 16, 6), 1, 0),
+                                                ((16, 8, 6), 0, 1),
+                                                ((4, 6, 16), 2, 0),
+                                                ((3, 8, 16, 5), 2, 1)])
+def test_peer_a2a_matches_block_transpose(cuda, P, shape, split, concat):
+    xs = _blocks(shape, P, cuda)
+    out = list(shape)
+    out[split] //= P
+    out[concat] *= P
+    for kernel in (True, False):
+        buf = rdma.SymmetricBuffer.local(P, (2,) + tuple(out), cuda)
+        before = rdma.LAUNCHES["peer_a2a"]
+        for my in range(P):
+            for leaf in range(2):
+                x = xs[my] * (1 + leaf)
+                if kernel:
+                    rdma.a2a_push(x, buf, my, split, concat, leaf)
+                else:
+                    rdma.a2a_push_ref(x, buf, my, split, concat, leaf)
+        assert rdma.LAUNCHES["peer_a2a"] == before + (2 * P if kernel else 0)
+        torch.cuda.synchronize()
+        for r in range(P):
+            want = torch.cat([torch.chunk(xs[s], P, dim=split)[r]
+                              for s in range(P)], dim=concat)
+            for leaf in range(2):
+                assert torch.equal(buf.tensors[r][leaf], want * (1 + leaf))
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("C,n0,n1,h", [(1, 256, 16, 128), (2, 40, 8, 6),
+                                       (3, 16, 16, 256), (1, 640, 8, 4)])
+def test_peer_fft_x_kernels_match_twins(cuda, P, C, n0, n1, h):
+    np0, np1 = n0 // P, n1 // P
+    pull = rdma.SymmetricBuffer.local(P, (2, C, np0, n1, h), cuda)
+    for r, t in enumerate(pull.tensors):
+        t.copy_(_f32(t.shape, cuda, 10 + r))
+    for my in range(P):
+        got = rdma.fft_x_pull(pull, my)
+        _close((got[0], got[1]), tuple(rdma.fft_x_pull_ref(pull, my)))
+    xs = [(_f32((C, n0, np1, h), cuda, 20 + r), _f32((C, n0, np1, h), cuda,
+                                                      40 + r))
+          for r in range(P)]
+    got = rdma.SymmetricBuffer.local(P, (2, C, np0, n1, h), cuda)
+    want = rdma.SymmetricBuffer.local(P, (2, C, np0, n1, h), cuda)
+    before = rdma.LAUNCHES["peer_ifft_x"]
+    for my, (xr, xi) in enumerate(xs):
+        rdma.ifft_x_push(xr, xi, got, my)
+        rdma.ifft_x_push_ref(xr, xi, want, my)
+    assert rdma.LAUNCHES["peer_ifft_x"] == before + P
+    for g, w in zip(got.tensors, want.tensors):
+        _close((g[0], g[1]), (w[0], w[1]))
+
+
+def test_peer_fft_x_round_trip_is_identity(cuda):
+    P, C, n0, n1, h = 4, 2, 256, 32, 64
+    buf = rdma.SymmetricBuffer.local(P, (2, C, n0 // P, n1, h), cuda)
+    orig = [_f32(t.shape, cuda, 60 + r) for r, t in enumerate(buf.tensors)]
+    for t, o in zip(buf.tensors, orig):
+        t.copy_(o)
+    spec = [rdma.fft_x_pull(buf, my) for my in range(P)]
+    torch.cuda.synchronize()
+    for my, s in enumerate(spec):
+        rdma.ifft_x_push(s[0].contiguous(), s[1].contiguous(), buf, my)
+    _close(tuple(buf.tensors), tuple(orig))
+
+
+def test_rdma_raises_without_ipc(cuda, monkeypatch, tmp_path):
+    """communication='rdma' on the card never reroutes: a peer whose
+    buffer cannot be opened raises, and no all_to_all_single runs."""
+    import torch.distributed as dist
+    from mpifft4py_tpu_torch.parallel import collectives
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        def refuse(handle):
+            raise RuntimeError("cudaIpcOpenMemHandle: invalid context")
+
+        def gather_fake(objs, obj, group=None):
+            objs[0], objs[1] = obj, obj
+
+        def no_reroute(*a, **k):
+            raise AssertionError("rdma rerouted through all_to_all_single")
+        monkeypatch.setattr(rdma, "_open_handle", refuse)
+        monkeypatch.setattr(dist, "all_gather_object", gather_fake)
+        monkeypatch.setattr(collectives, "transpose", no_reroute)
+        monkeypatch.setattr(dist, "all_to_all_single", no_reroute)
+        peers = rdma.PeerGroup(dist.group.WORLD, 2, 0, cuda)
+        y = _f32((8, 16, 4), cuda)
+        with pytest.raises(RuntimeError, match="rdma"):
+            rdma.fused_transpose_fft_x(y, y.clone(), peers)
+        with pytest.raises(RuntimeError, match="rdma"):
+            rdma.rdma_all_to_all((y, y), peers, 1, 0)
+    finally:
+        dist.destroy_process_group()

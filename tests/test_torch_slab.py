@@ -106,10 +106,18 @@ def test_kernel_gate_is_a_shape_predicate():
 
 def test_unported_options_raise():
     N, L = np.array([16] * 3), np.array([TAU] * 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # an int comm names the group's size: a world of one is not 2 or 4
+    with pytest.raises(ValueError, match="torch.distributed"):
         tslab.R2C(N, L, 2, "single", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torch.distributed"):
         tslab.C2C(N, L, 4, "single", device="cpu")
+    # the family is ported at P == 1 only (P = 2 stands in for a group
+    # here; tests/test_torch_slab_dist.py raises it on a real one)
+    from mpifft4py_tpu_torch.models import VorticityVelocity3D
+    FFT = tslab.R2C(N, L, None, "single", device="cpu")
+    FFT.P = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VorticityVelocity3D(FFT, 0.01, 0.01)
     with pytest.raises(ValueError):
         tslab.R2C(np.array([16, 16, 15]), L, None, "single", device="cpu")
 
