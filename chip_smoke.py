@@ -64,7 +64,20 @@ Phases, each checked; any failed check makes the exit code non-zero:
     step with the share spent in the fences (synchronise + barrier).  The
     ranks time-slice one card: these are not scaling figures.  Each rank
     counts its own launches around each call, and they join the main
-    path's counts.
+    path's counts;
+13. the pencil on one card: 4 ranks spawned on ``cuda:0`` (gloo,
+    ``communication="rdma"``, rows 23-27), the grids 2x2, 4x1 and 1x4 built
+    from them: ``pencil.R2C`` 256³ on 2x2 against float64
+    ``torch.fft.rfftn`` (2e-6, its alignment lanes exactly 0), its round
+    trip, its 2/3-rule forward and its 3/2-rule forward and round trip
+    against the P == 1 slab path (1e-6), the alignment-Y, ``pencil.C2C``
+    and 1x4 round trips, the 4x1 packed interface's round trip, then 5
+    NS3D 256³ RK4 steps on 2x2 in each layout (packed = WIDE) from
+    Taylor–Green, each state against phase 4's/5's P == 1 state (1e-5 rel
+    L2), the energy decaying, each step's launches exactly 4 x one
+    right-hand side's (``PENCIL_COMPLEX_RHS``, ``PENCIL_PACKED_RHS``; rows
+    26-27 in the complex steps); ms per round trip and per step with the
+    fence share.
 
 Before the main path, the envelope sweep holds the widened plans against
 their twins (1e-5) and in round trips through the kernels (1e-6):
@@ -77,7 +90,7 @@ the forward of a product field against a float64 alias-sum oracle) and
 ``slab.C2C`` (forward against float64 ``torch.fft.fftn``, round trip, and
 the 3/2-rule round trip and forward, the latter against float64 ``fftn``
 on the 384³ grid truncated to 256³).
-Phases 3–12 are the main path: each runs with the kernels' launch counters
+Phases 3–13 are the main path: each runs with the kernels' launch counters
 set to 0 just before it and read just after, and phases 4–8 also read them
 around each of their steps.  Phase 2 also holds each template variant of
 the fused kernels (Biot–Savart curl, cross2 and mul products, the curl,
@@ -87,8 +100,8 @@ packed 2D layout) at n = 512, 768 and 1024 on the 1024² field and the
 (4, 1024, n/2) stack of NS2D's batched inverse, against their twins (and
 row 17 against row 4 permuted, and a round trip) at 1e-6, and rows 19–22
 at the 256³ chain's shapes and the full-length r2c/c2r at odd n, and
-rows 23-25 with in-process buffer tables at P = 2 and 4 (P ranks emulated
-by one launch each) at phase 12's 256³ shapes.  Each kernel's
+rows 23-27 with in-process buffer tables at P = 2 and 4 (P ranks emulated
+by one launch each) at phase 12's and 13's 256³ shapes.  Each kernel's
 time is its median beside its plain twin's and, where one exists, one ``torch.fft`` call's computing the
 same function, with the bound of its bytes at 3.35 TB/s and of its FFT
 flops (5 n log2 n a complex transform, half that a real one) at 67 TFLOP/s
@@ -163,6 +176,10 @@ KERNELS = {
                    f"{RDMA}:437 (row 24, fused_transpose_fft_x)"),
     "peer_ifft_x": (f"{CSRC}/peer_fft_x.cu",
                     f"{RDMA}:592 (row 25, fused_ifft_x_transpose)"),
+    "peer_fft_y": (f"{CSRC}/peer_fft_x.cu",
+                   f"{RDMA}:733 (row 26, fused_transpose_fft_y)"),
+    "peer_ifft_y": (f"{CSRC}/peer_fft_x.cu",
+                    f"{RDMA}:865 (row 27, fused_ifft_y_transpose)"),
 }
 # phase 12: the packed NS3D step at P = 2 under "rdma": one right-hand side
 # launches row 25 twice (the state and the curl, one 3-stack each) and row
@@ -171,6 +188,18 @@ KERNELS = {
 DIST_RHS = {"peer_a2a": 4, "peer_fft_x": 0, "peer_ifft_x": 2,
             "cross_rfft_z": 1, "fft_axis": 3, "packed_irfft_last": 2,
             "fft_x_epilogue": 1}
+# phase 13: NS3D on the 2x2 pencil under "rdma", one right-hand side.
+# Packed (WIDE): two packed inverses (each the x inverse, the joint
+# transpose, the y inverse, the P2 transpose: two row-1 and four row-23
+# launches, then the z c2r), the product with the z r2c, the P2 transpose
+# with the y c2c, the joint transpose, the x epilogue, the plane-0 gather
+# over the joint group (row 23 a planar leaf).  Complex: two inverses
+# (rows 25, 27, 9) and the forward (rows 8, 26, 24), a 3-stack a launch.
+PENCIL_PACKED_RHS = {"peer_a2a": 14, "fft_axis": 5, "packed_irfft_last": 2,
+                     "cross_rfft_z": 1, "fft_x_epilogue": 1}
+PENCIL_COMPLEX_RHS = {"peer_ifft_x": 2, "peer_ifft_y": 2,
+                      "planar_irfft_last": 2, "planar_rfft_last": 1,
+                      "peer_fft_y": 1, "peer_fft_x": 1}
 NU, DT = 0.000625, 0.01
 TRANSFORM_KERNELS = ("fft_axis", "packed_rfft_last", "packed_irfft_last")
 PADDED_KERNELS = ("fft_axis", "planar_rfft_last", "planar_irfft_last")
@@ -595,16 +624,17 @@ def kernel_phase(torch, p3, zd, dn, rng):
 
 
 def peer_kernel_phase(torch, rdma, rng):
-    """Rows 23-25 against their plain twins with in-process buffer tables
+    """Rows 23-27 against their plain twins with in-process buffer tables
     (P ranks emulated: one launch a rank) at P = 2 and 4 and the 256³
-    shapes of phase 12 (relative 1e-5), the P = 2 call of rank 0 timed
-    beside its twin and the same work in torch; returns their JSON
-    numbers."""
+    shapes of phases 12 and 13 (relative 1e-5; rows 26-27 on the 2x2 and
+    the 1x4 pencil's z pairs), the P = 2 call of rank 0 timed beside its
+    twin and the same work in torch; returns their JSON numbers."""
     def cu(shape):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).cuda()
 
-    errs = dict.fromkeys(("peer_a2a", "peer_fft_x", "peer_ifft_x"), 0.0)
+    errs = dict.fromkeys(("peer_a2a", "peer_fft_x", "peer_ifft_x",
+                          "peer_fft_y", "peer_ifft_y"), 0.0)
 
     def compare(name, label, got, ref):
         torch.cuda.synchronize()
@@ -644,6 +674,26 @@ def peer_kernel_phase(torch, rdma, rng):
         compare("peer_ifft_x", f"P={P} (1, 256, {np1}, 128)", kb.tensors,
                 pb.tensors)
         del xs, kb, pb, pull, spec
+        # rows 26-27 at the pencil's z pair: 2x2 (1, 128, 128, 130) ->
+        # (1, 128, 256, 65); 1x4 (1, 256, 64, 132) -> (1, 256, 256, 33)
+        n0, W = n // (4 // P), (n // 2 + 1 + P - 1) // P * P
+        n1loc, w2 = n // P, W // P
+        pull = rdma.SymmetricBuffer([cu((2, 1, n0, n1loc, W)) + r
+                                     for r in range(P)])
+        for my in range(P):
+            compare("peer_fft_y", f"P2={P} rank {my} (2, 1, {n0}, {n1loc}, "
+                                  f"{W})",
+                    tuple(rdma.fft_y_pull(pull, my)),
+                    tuple(rdma.fft_y_pull_ref(pull, my)))
+        kb = rdma.SymmetricBuffer.local(P, (2, 1, n0, n1loc, W), "cuda")
+        pb = rdma.SymmetricBuffer.local(P, (2, 1, n0, n1loc, W), "cuda")
+        spec = [(cu((1, n0, n, w2)), cu((1, n0, n, w2))) for _ in range(P)]
+        for my, (xr, xi) in enumerate(spec):
+            rdma.ifft_y_push(xr, xi, kb, my)
+            rdma.ifft_y_push_ref(xr, xi, pb, my)
+        compare("peer_ifft_y", f"P2={P} (1, {n0}, 256, {w2})", kb.tensors,
+                pb.tensors)
+        del kb, pb, pull, spec
 
     # the timed cases: rank 0 of P = 2
     P, np0, np1 = 2, n // 2, n // 2
@@ -663,6 +713,25 @@ def peer_kernel_phase(torch, rdma, rng):
         for d in range(P):
             dst[d].copy_(y[d * np0:(d + 1) * np0])
 
+    # rows 26-27, rank 0 of the 2x2 pencil's P2 = 2 group at 256^3: the z
+    # pair (1, 128, 128, 130) of each rank, w2 = 65 lanes
+    n0y, W, n1loc, w2 = n // 2, 130, n // 2, 65
+    ypull = rdma.SymmetricBuffer([cu((2, 1, n0y, n1loc, W))
+                                  for _ in range(P)])
+    yb = [torch.complex(t[0, 0, :, :, :w2], t[1, 0, :, :, :w2]).contiguous()
+          for t in ypull.tensors]         # the lane blocks rank 0 receives
+    yxr, yxi = cu((1, n0y, n, w2)), cu((1, n0y, n, w2))
+    yz = torch.complex(yxr[0], yxi[0])
+    ypush = rdma.SymmetricBuffer.local(P, (2, 1, n0y, n1loc, W), "cuda")
+    ydst = [torch.empty((n0y, n1loc, w2), dtype=torch.complex64,
+                        device="cuda") for _ in range(P)]
+
+    def ifft_y_lib():
+        y = torch.fft.ifft(yz, dim=1)
+        for d in range(P):
+            ydst[d].copy_(y[:, d * n1loc:(d + 1) * n1loc])
+
+    ypair = 2 * 4 * n0y * n * w2        # one rank's received pair, bytes
     pair = 2 * 4 * np0 * n * h          # one rank's planar pair, bytes
     cases = {
         "peer_a2a": (lambda: rdma.a2a_push(xs[0], a2a_buf, 0, 2, 1),
@@ -675,6 +744,13 @@ def peer_kernel_phase(torch, rdma, rng):
         "peer_ifft_x": (lambda: rdma.ifft_x_push(xr, xi, push, 0),
                         lambda: rdma.ifft_x_push_ref(xr, xi, push, 0),
                         ifft_lib, 2 * pair, fft_flops(n * np1 * h, n)),
+        "peer_fft_y": (lambda: rdma.fft_y_pull(ypull, 0),
+                       lambda: rdma.fft_y_pull_ref(ypull, 0),
+                       lambda: torch.fft.fft(torch.cat(yb, dim=1), dim=1),
+                       2 * ypair, fft_flops(n0y * n * w2, n)),
+        "peer_ifft_y": (lambda: rdma.ifft_y_push(yxr, yxi, ypush, 0),
+                        lambda: rdma.ifft_y_push_ref(yxr, yxi, ypush, 0),
+                        ifft_y_lib, 2 * ypair, fft_flops(n0y * n * w2, n)),
     }
     res = {}
     for name, (kern, plain, lib, nb, fl) in cases.items():
@@ -1336,22 +1412,21 @@ def _reset_counts(p3, rdma):
     rdma.reset_launches()
 
 
-def dist_child(rank, P, store, ns_file, q, n=256, device="cuda"):
+def dist_child(rank, q, P, store, ns_file):
     """One rank of phase 12 (a spawned process on cuda:0, a gloo group of
     P): the main path's distributed calls under ``communication="rdma"``,
     each with the launch counts set to 0 just before it and read just
     after; rank 0 holds the gathered results against the P == 1 kernel
     path (a world-of-one group on the same card) and float64
-    ``torch.fft``.  Puts (rank, results) or (rank, traceback) on ``q``.
-    (``n``/``device`` shrink it for a rehearsal on the CPU.)"""
+    ``torch.fft``.  Puts (rank, results) or (rank, traceback) on ``q``."""
     import traceback
     try:
-        q.put((rank, _dist_child(rank, P, store, ns_file, n, device)))
+        q.put((rank, _dist_child(rank, P, store, ns_file)))
     except BaseException:
         q.put((rank, traceback.format_exc()))
 
 
-def _dist_child(rank, P, store, ns_file, n, device):
+def _dist_child(rank, P, store, ns_file):
     import torch
     import torch.distributed as dist
     sys.path.insert(0, HERE)
@@ -1359,21 +1434,19 @@ def _dist_child(rank, P, store, ns_file, n, device):
     from mpifft4py_tpu_torch.ops import fft3d as p3
     from mpifft4py_tpu_torch.parallel import rdma
     from mpifft4py_tpu_torch.slab import C2C, R2C
-    cuda = device == "cuda"
-    if cuda:
-        torch.cuda.set_device(0)
+    torch.cuda.set_device(0)
 
     def sync():
-        if cuda:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
 
     dist.init_process_group("gloo", store=dist.FileStore(store, P),
                             rank=rank, world_size=P)
     one = [dist.new_group([r]) for r in range(P)]    # a world of one each
     out = {"checks": [], "counts": {}, "times": {}}
+    n = 256
     N, L = np.array([n] * 3), np.array([TAU] * 3)
 
     def note(ok, what):
@@ -1389,8 +1462,8 @@ def _dist_child(rank, P, store, ns_file, n, device):
 
     rng = np.random.default_rng(SEED + 12)
     u = rng.standard_normal((n,) * 3).astype(np.float32)
-    F = R2C(N, L, None, "single", communication="rdma", device=device)
-    F1 = R2C(N, L, one[rank], "single", device=device)
+    F = R2C(N, L, None, "single", communication="rdma", device="cuda")
+    F1 = R2C(N, L, one[rank], "single", device="cuda")
     ul = F.shard_real(u)
 
     # R2C: forward, round trip, 2/3 rule; rows 24-25 and row 23
@@ -1430,7 +1503,7 @@ def _dist_child(rank, P, store, ns_file, n, device):
     del u3, f32, g32
 
     # C2C round trip (row 23)
-    C = C2C(N, L, None, "single", communication="rdma", device=device)
+    C = C2C(N, L, None, "single", communication="rdma", device="cuda")
     uc = C.shard_real(u + 1j * u[::-1])
     cb = main_path("C2C round trip", lambda: C.ifftn(C.fftn(uc)))
     note(rel_err(torch, cb, uc) < 1e-6, f"C2C {n}^3 round trip rel err "
@@ -1455,7 +1528,7 @@ def _dist_child(rank, P, store, ns_file, n, device):
 
     if ns_file is not None:
         out.update(_dist_ns3d(torch, NavierStokes3D, R2C, p3, rdma, ns_file,
-                              note, main_path, N, L, device, sync, dev))
+                              note, main_path, N, L, sync, dev))
     # drop the peers' mapped buffers on every rank before any rank exits
     gc.collect()
     sync()
@@ -1465,13 +1538,13 @@ def _dist_child(rank, P, store, ns_file, n, device):
 
 
 def _dist_ns3d(torch, NavierStokes3D, R2C, p3, rdma, ns_file, note,
-               main_path, N, L, device, sync, dev):
+               main_path, N, L, sync, dev):
     """Packed NS3D, RK4, 5 steps from Taylor–Green under "rdma": the
     energy decays, each step launches exactly 4 x DIST_RHS (on the card),
     and the state is held against phase 5's P == 1 state (rel L2 1e-5 over
     the group)."""
     import torch.distributed as dist
-    FFT = R2C(N, L, None, "single", communication="rdma", device=device)
+    FFT = R2C(N, L, None, "single", communication="rdma", device="cuda")
     s = NavierStokes3D(FFT, nu=NU, dt=DT, dealias="2/3-rule",
                        integrator="RK4", spectral_layout="packed")
     U0 = s.taylor_green()
@@ -1485,11 +1558,11 @@ def _dist_ns3d(torch, NavierStokes3D, R2C, p3, rdma, ns_file, note,
     want = {k: 4 * c for k, c in DIST_RHS.items() if c}
     for i, c in enumerate(steps):
         got = {k: v for k, v in c.items() if v}
-        note(got == want or device != "cuda",
+        note(got == want,
              f"packed NS3D step {i} launches {got} (expected {want})")
     note(all(a > b for a, b in zip(e, e[1:])) and abs(e[0] - 0.125) < 1e-6,
          f"packed NS3D energies {e} start at 0.125 and decrease")
-    ref = dev(FFT._block(np.load(ns_file), -2))
+    ref = dev(FFT._cut(np.load(ns_file), "packed"))
     num = FFT._all_reduce(((U - ref) ** 2).sum().double())
     den = FFT._all_reduce((ref ** 2).sum().double())
     err = float(torch.sqrt(num / den))
@@ -1508,73 +1581,319 @@ def _dist_ns3d(torch, NavierStokes3D, R2C, p3, rdma, ns_file, note,
                          / wall}}
 
 
-def dist_phase(torch, launches, U_packed, n=256, device="cuda"):
+def _build_tmp():
+    """A fresh directory under build/ (gitignored) for the ranks' files."""
+    import tempfile
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    return tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+
+
+def run_ranks(P, target, args, label, launches):
+    """``target(rank, q, *args)`` in P spawned processes (ranks on
+    cuda:0): every check and launch count of a rank comes back here, and a
+    rank's failure fails the run.  Returns rank 0's result dict (None if it
+    failed)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, q) + tuple(args))
+             for r in range(P)]
+    for p in procs:
+        p.start()
+    got = {}
+    for _ in procs:
+        try:
+            r, res = q.get(timeout=QTIMEOUT)
+        except Exception:
+            break
+        got[r] = res
+    for p in procs:
+        p.join(60)
+        if p.is_alive():
+            p.terminate()
+            p.join(10)
+    check(sorted(got) == list(range(P)) and all(
+        isinstance(v, dict) for v in got.values()) and all(
+        p.exitcode == 0 for p in procs),
+          f"{label}: every rank ran to its end (exit codes "
+          f"{[p.exitcode for p in procs]})")
+    for r in sorted(got):
+        res = got[r]
+        if not isinstance(res, dict):
+            print(f"{label} rank {r} failed:\n{res}", flush=True)
+            continue
+        for ok, what in res["checks"]:
+            check(ok, what)
+        for lbl, counts in res["counts"].items():
+            for k, c in counts.items():
+                launches[k] += c
+            if r == 0:
+                print(f"{label} {lbl} launches (rank 0): "
+                      f"{ {k: c for k, c in counts.items() if c} }",
+                      flush=True)
+    return got[0] if isinstance(got.get(0), dict) else None
+
+
+def dist_phase(torch, launches, U_packed):
     """Phase 12: the distributed slab on one card.  P = 2, then P = 4,
     ranks spawned on cuda:0 with a gloo group (NCCL refuses two ranks on
-    one card) and ``communication="rdma"``; every check and launch count
-    of a child comes back here, and a child's failure fails the run.
-    The P = 2 ranks also step packed NS3D, against ``U_packed`` (phase
-    5's state, handed over in a file under build/)."""
-    import multiprocessing as mp
-    import tempfile
-    ctx = mp.get_context("spawn")
-    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    one card) and ``communication="rdma"``.  The P = 2 ranks also step
+    packed NS3D, against ``U_packed`` (phase 5's state, handed over in a
+    file under build/)."""
+    tmp = _build_tmp()
     ns_file = None
     if U_packed is not None:
         ns_file = os.path.join(tmp, "ns3d_p1.npy")
         np.save(ns_file, U_packed.cpu().numpy())
     for P in (2, 4):
         t0 = time.perf_counter()
-        q = ctx.Queue()
-        procs = [ctx.Process(target=dist_child, args=(
-            r, P, os.path.join(tmp, f"store{P}"),
-            ns_file if P == 2 else None, q, n, device)) for r in range(P)]
-        for p in procs:
-            p.start()
-        got = {}
-        for _ in procs:
-            try:
-                r, res = q.get(timeout=QTIMEOUT)
-            except Exception:
-                break
-            got[r] = res
-        for p in procs:
-            p.join(60)
-            if p.is_alive():
-                p.terminate()
-                p.join(10)
-        check(sorted(got) == list(range(P)) and all(
-            isinstance(v, dict) for v in got.values()) and all(
-            p.exitcode == 0 for p in procs),
-              f"phase 12 P={P}: every rank ran to its end (exit codes "
-              f"{[p.exitcode for p in procs]})")
-        for r in sorted(got):
-            res = got[r]
-            if not isinstance(res, dict):
-                print(f"phase 12 P={P} rank {r} failed:\n{res}", flush=True)
-                continue
-            for ok, what in res["checks"]:
-                check(ok, what)
-            for label, counts in res["counts"].items():
-                for k, c in counts.items():
-                    launches[k] += c
-                if r == 0:
-                    print(f"phase 12 P={P} {label} launches (rank 0): "
-                          f"{ {k: c for k, c in counts.items() if c} }",
-                          flush=True)
-        if 0 in got and isinstance(got[0], dict):
-            res = got[0]
+        res = run_ranks(P, dist_child, (P, os.path.join(tmp, f"store{P}"),
+                                        ns_file if P == 2 else None),
+                       f"phase 12 P={P}", launches)
+        if res is not None:
             print(f"time phase 12 P={P} (ranks time-slicing one card; not a "
-                  f"scaling figure): R2C {n}^3 rdma round trip "
+                  f"scaling figure): R2C 256^3 rdma round trip "
                   f"{res["times"]["R2C round trip ms"]:.3f} ms, fence "
                   f"(synchronise + barrier) share "
                   f"{res['times']['R2C round trip fence share']:.3f}"
                   + ("" if "ns_times" not in res else
-                     f"; packed NS3D {n}^3 RK4 "
+                     f"; packed NS3D 256^3 RK4 "
                      f"{res['ns_times']['ms/step']:.3f} ms/step, fence share "
                      f"{res['ns_times']['fence share']:.3f}")
                   + f"; phase wall {time.perf_counter() - t0:.1f} s",
                   flush=True)
+    shutil.rmtree(tmp)
+
+
+# -- phase 13: the pencil on one card -------------------------------------------------
+
+def pencil_child(rank, q, store, files):
+    """One rank of phase 13 (a spawned process on cuda:0, a gloo group of
+    4, ``communication="rdma"``): the pencil's main-path calls on the 2x2,
+    4x1 and 1x4 grids, each with the launch counts set to 0 just before it
+    and read just after.  Puts (rank, results) or (rank, traceback) on
+    ``q``."""
+    import traceback
+    try:
+        q.put((rank, _pencil_child(rank, store, files)))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+
+
+def _fence_seconds(F):
+    peers = {id(p): p for p in (F._peers, F._ride1[1], F._ride2[1])
+             if p is not None}      # a sub-group spanning the grid rides F's
+    return sum(p.fence_seconds for p in peers.values())
+
+
+def _pencil_child(rank, store, files):
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from mpifft4py_tpu_torch import pencil
+    from mpifft4py_tpu_torch.models import NavierStokes3D
+    from mpifft4py_tpu_torch.ops import fft3d as p3
+    from mpifft4py_tpu_torch.parallel import rdma
+    from mpifft4py_tpu_torch.slab import R2C as SlabR2C
+    P, shape = 4, (256,) * 3
+    torch.cuda.set_device(0)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, P),
+                            rank=rank, world_size=P)
+    one = [dist.new_group([r]) for r in range(P)]    # a world of one each
+    out = {"checks": [], "counts": {}, "times": {}}
+    N, L = np.array(shape), np.array([TAU] * 3)
+    tag = "x".join(str(n) for n in shape)
+
+    def note(ok, what):
+        out["checks"].append((bool(ok), f"phase 13 rank {rank}: {what}"))
+
+    def main_path(label, fn):
+        sync()
+        _reset_counts(p3, rdma)
+        res = fn()
+        sync()
+        out["counts"][label] = _dist_counts(p3, rdma)
+        return res
+
+    def make(P1, cls=pencil.R2C, **kw):
+        return cls(N, L, None, "single", P1=P1, communication="rdma",
+                   device="cuda", **kw)
+
+    def round_trip(F, u, what, dealias=None):
+        back = main_path(f"{what} round trip", lambda: F.ifftn(
+            F.fftn(u, dealias=dealias), dealias=dealias))
+        err = rel_err(torch, back, u)
+        note(err < 1e-6, f"{what} {tag} round trip rel err {err:.3e}")
+
+    rng = np.random.default_rng(SEED + 13)
+    u = rng.standard_normal(shape).astype(np.float32)
+    F = make(2)
+    S1 = SlabR2C(N, L, one[rank], "single", device="cuda")   # P == 1
+    nf = F.Nf
+    ul = F.shard_real(u)
+
+    # 2x2 R2C: rows 8, 26, 24 forward; 25, 27, 9 back
+    fu = main_path("2x2 R2C forward", lambda: F.fftn(ul))
+    back = main_path("2x2 R2C backward", lambda: F.ifftn(fu))
+    err = rel_err(torch, back, ul)
+    note(err < 1e-6, f"2x2 R2C {tag} round trip rel err {err:.3e}")
+    f23 = main_path("2x2 R2C 2/3 forward",
+                    lambda: F.fftn(ul, dealias="2/3-rule"))
+    g, g23 = F.gather(fu), F.gather(f23)
+    del fu, back, f23
+    if rank == 0:
+        note(np.all(g[..., nf:] == 0), f"2x2 R2C forward: the alignment "
+                                       f"lanes {nf}..{F.Nfp - 1} are 0")
+        ug = dev(u)
+        ref = torch.fft.rfftn(ug.double())
+        err = rel_err(torch, dev(g[..., :nf]).to(ref.dtype), ref)
+        note(err <= 2e-6, f"2x2 R2C {tag} forward vs float64 rfftn: rel err "
+                          f"{err:.3e}")
+        del ref
+        err = rel_err(torch, dev(g23[..., :nf]),
+                      S1.fftn(ug, dealias="2/3-rule"))
+        note(err <= 1e-6, f"2x2 R2C {tag} 2/3-rule forward vs the P == 1 "
+                          f"slab path: rel err {err:.3e}")
+        del ug
+    del g, g23
+
+    # the 3/2 rule (row 23 stages): forward and round trip
+    u3 = rng.standard_normal(tuple(3 * n // 2 for n in shape)).astype(
+        np.float32)
+    f32 = main_path("2x2 R2C 3/2 forward",
+                    lambda: F.fftn(F.shard_real(u3), dealias="3/2-rule"))
+    b32 = main_path("2x2 R2C 3/2 backward",
+                    lambda: F.ifftn(f32, dealias="3/2-rule"))
+    g32, gb32 = F.gather(f32), F.gather(b32)
+    del f32, b32
+    if rank == 0:
+        r32 = S1.fftn(dev(u3), dealias="3/2-rule")
+        err = rel_err(torch, dev(g32[..., :nf]), r32)
+        note(err <= 1e-6, f"2x2 R2C {tag} 3/2-rule forward vs the P == 1 "
+                          f"slab path: rel err {err:.3e}")
+        err = rel_err(torch, dev(gb32), S1.ifftn(r32, dealias="3/2-rule"))
+        note(err <= 1e-6, f"2x2 R2C {tag} 3/2-rule round trip vs the P == 1 "
+                          f"slab path: rel err {err:.3e}")
+        del r32
+    del u3, g32, gb32
+
+    FY = make(2, alignment="Y")
+    round_trip(FY, FY.shard_real(u), "2x2 R2C alignment Y")
+    C = make(2, cls=pencil.C2C)
+    round_trip(C, C.shard_real(u + 1j * u[::-1]), "2x2 C2C")
+    F14 = make(1)
+    round_trip(F14, F14.shard_real(u), "1x4 R2C")
+    F41 = make(4)
+    u41 = F41.shard_real(u)
+    pk = main_path("4x1 packed round trip", lambda: F41.backward_packed_fn()(
+        F41.forward_packed_fn()(u41)))
+    err = rel_err(torch, pk, u41)
+    note(err < 1e-6, f"4x1 packed interface {tag} round trip rel err "
+                     f"{err:.3e}")
+    del FY, C, F14, F41, u41, pk
+
+    # times: the 2x2 R2C round trip (host clock, every rank synchronised)
+    fwd, bwd = F.forward_fn(), F.backward_fn()
+    for _ in range(2):
+        bwd(fwd(ul))
+    sync()
+    dist.barrier()
+    f0, t0 = _fence_seconds(F), time.perf_counter()
+    for _ in range(10):
+        bwd(fwd(ul))
+    sync()
+    wall = time.perf_counter() - t0
+    out["times"]["R2C round trip ms"] = wall * 1e3 / 10
+    out["times"]["R2C round trip fence share"] = \
+        (_fence_seconds(F) - f0) / wall
+    del ul, fwd, bwd
+
+    # NS3D on the 2x2 pencil, both layouts (packed = WIDE)
+    refs = {"complex": np.load(files["complex"]),
+            "packed": np.load(files["packed"])}
+    refs["complex"] = np.pad(refs["complex"],
+                             [(0, 0)] * 3 + [(0, F.Nfp - nf)])
+    rhs = {"complex": PENCIL_COMPLEX_RHS, "packed": PENCIL_PACKED_RHS}
+    for layout in ("complex", "packed"):
+        s = NavierStokes3D(F, nu=NU, dt=DT, dealias="2/3-rule",
+                           integrator="RK4", spectral_layout=layout)
+        U0 = s.taylor_green()
+        e = [s.energy(U0)]
+        U, steps = U0, []
+        for i in range(5):
+            U = main_path(f"NS3D {layout} step {i}", lambda: s.step(U))
+            steps.append(_dist_counts(p3, rdma))
+            e.append(s.energy(U))
+        want = {k: 4 * c for k, c in rhs[layout].items()}
+        for i, c in enumerate(steps):
+            got = {k: v for k, v in c.items() if v}
+            note(got == want,
+                 f"{layout} NS3D step {i} launches {got} (expected {want})")
+        note(all(a > b for a, b in zip(e, e[1:]))
+             and abs(e[0] - 0.125) < 1e-6,
+             f"{layout} NS3D energies {e} start at 0.125 and decrease")
+        ref = dev(F._cut(refs[layout], layout))
+        num = F._all_reduce(((U - ref).abs() ** 2).sum().double())
+        den = F._all_reduce((ref.abs() ** 2).sum().double())
+        err = float(torch.sqrt(num / den))
+        note(err <= 1e-5, f"{layout} NS3D {tag} on 2x2 after 5 steps vs "
+                          f"the P == 1 {layout} state (phase "
+                          f"{4 if layout == 'complex' else 5}): rel L2 err "
+                          f"{err:.3e}")
+        sync()
+        dist.barrier()
+        f0, t0 = _fence_seconds(F), time.perf_counter()
+        V = U0
+        for _ in range(5):
+            V = s.step(V)
+        sync()
+        wall = time.perf_counter() - t0
+        out["times"][f"NS3D {layout} ms/step"] = wall * 1e3 / 5
+        out["times"][f"NS3D {layout} fence share"] = \
+            (_fence_seconds(F) - f0) / wall
+        del s, U0, U, V, ref
+    # drop the peers' mapped buffers on every rank before any rank exits
+    del F, S1
+    gc.collect()
+    sync()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def pencil_phase(torch, launches, Uc, U_packed):
+    """Phase 13: the pencil on one card: 4 ranks spawned on cuda:0, a gloo
+    group, ``communication="rdma"`` (rows 23-27 over CUDA IPC), the 2x2,
+    4x1 and 1x4 grids built from the same ranks; NS3D on 2x2 against
+    ``Uc``/``U_packed`` (phases 4/5's P == 1 states, handed over in files
+    under build/)."""
+    tmp = _build_tmp()
+    files = {}
+    for name, U in (("complex", Uc), ("packed", U_packed)):
+        files[name] = os.path.join(tmp, f"ns3d_{name}.npy")
+        np.save(files[name], U.cpu().numpy())
+    t0 = time.perf_counter()
+    res = run_ranks(4, pencil_child, (os.path.join(tmp, "store"), files),
+                    "phase 13", launches)
+    if res is not None:
+        t = res["times"]
+        tag = "256x256x256"
+        print(f"time phase 13 (4 ranks time-slicing one card; not a scaling "
+              f"figure): 2x2 pencil R2C {tag} rdma round trip "
+              f"{t['R2C round trip ms']:.3f} ms, fence (synchronise + "
+              f"barrier) share {t['R2C round trip fence share']:.3f}; NS3D "
+              f"{tag} RK4 on 2x2: complex {t['NS3D complex ms/step']:.3f} "
+              f"ms/step, fence share {t['NS3D complex fence share']:.3f}; "
+              f"packed (WIDE) {t['NS3D packed ms/step']:.3f} ms/step, fence "
+              f"share {t['NS3D packed fence share']:.3f}; phase wall "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     shutil.rmtree(tmp)
 
 
@@ -1638,16 +1957,17 @@ def main():
     path(family_phase, torch, p3, {"R2C": R2C, "VV": VorticityVelocity3D,
                                    "MHD": MHD3D, "Boussinesq": Boussinesq3D},
          Uc, Ud)
-    del Uc, Ud
+    del Ud
     path(line_phase, torch, LineR2C, rng)
     path(ns2d_phase, torch, p3, LineR2C, NavierStokes2D)
     path(serial_phase, torch, p3, T)
     path(dense_phase, torch, p3, dn)
     path(wide_packed_phase, torch, p3, R2C, NavierStokes3D, steps256)
-    # phase 12: the children count their own main-path launches
+    # phases 12-13: the children count their own main-path launches
     torch.cuda.empty_cache()
     dist_phase(torch, launches, U_packed)
-    del U_packed
+    pencil_phase(torch, launches, Uc, U_packed)
+    del Uc, U_packed
     for k, n in launches.items():
         check(n > 0, f"main path launched {k} {n} times")
 

@@ -19,13 +19,17 @@ kernels take (``ops.fft3d.supported_c2c``/``supported_r2c``).
 
 At P > 1 (a ``torch.distributed`` group, one process a rank: ``comm=None``
 takes the initialised default group) ``slab.R2C`` and ``slab.C2C`` cut
-physical space along axis 0 and spectral space along axis 1, with every
-``dealias`` and the packed interface, and ``NavierStokes3D`` steps in both
-layouts; ``communication`` is "alltoall"/"pipelined" (the group's
-``all_to_all_single``, NCCL on the card) or "rdma" (the hand-written
-peer-memory kernels of ``parallel.rdma``, rows 23–25: P processes may
-share one card over a gloo group).  The rest of the family, ``line`` and
-the pencil wait at P > 1 (ROADMAP.md queue 1 item 5).
+physical space along axis 0 and spectral space along axis 1;
+``pencil.R2C`` and ``pencil.C2C`` cut two axes on a P1×P2 grid of ranks
+(``P1=``, ``alignment="X"``/``"Y"``, the two sub-groups of
+``parallel.mesh.pencil_groups``; the packed interface at P2 == 1 and in
+the WIDE layout at P2 > 1).  Both take every ``dealias`` and
+``NavierStokes3D`` steps on both in both layouts; ``communication`` is
+"alltoall"/"pipelined" (the group's ``all_to_all_single``, NCCL on the
+card) or "rdma" (the hand-written peer-memory kernels of
+``parallel.rdma``, rows 23–27: P processes may share one card over a gloo
+group).  The rest of the family and ``line`` wait at P > 1 (ROADMAP.md
+queue 1 item 5).
 
     from mpifft4py_tpu_torch.slab import R2C, C2C
     from mpifft4py_tpu_torch.models import MHD3D, NavierStokes2D, NavierStokes3D
@@ -46,6 +50,8 @@ the pencil wait at P > 1 (ROADMAP.md queue 1 item 5).
     from mpifft4py_tpu_torch.parallel import runtime
     runtime.initialize()                            # NCCL, LOCAL_RANK's card
     FFT = R2C(N, L, None, "single")                 # (N0/P, N1, N2) a rank
+    from mpifft4py_tpu_torch import pencil          # a 2 x P/2 grid:
+    FFT = pencil.R2C(N, L, None, "single", P1=2, communication="rdma")
 
 ``save_field``/``load_field``/``save_state``/``load_state`` of the
 reference's package surface are not ported yet (ROADMAP.md queue 1 item 2).
@@ -58,7 +64,9 @@ family in ``tests/test_torch_ns2d.py``, the envelope in
 ``tests/test_torch_envelope.py``, the dense tier in
 ``tests/test_torch_dense.py`` and the serial tier in
 ``tests/test_torch_serial_fft.py``, the slab at P > 1 in
-``tests/test_torch_slab_dist.py``, over a pool of gloo ranks);
+``tests/test_torch_slab_dist.py`` and the pencil in
+``tests/test_torch_pencil.py`` and ``tests/test_torch_pencil_dist.py``,
+over pools of gloo ranks);
 ``python3 chip_smoke.py`` on the card, and ``python3 profile_step.py`` for
 the steps' times and profiles.
 """
@@ -73,7 +81,7 @@ from .serialFFT import (  # noqa: F401,E402
     rfft, irfft, rfft2, irfft2, rfftn, irfftn,
     dct, idct,
 )
-from . import line, parallel, slab  # noqa: F401,E402
+from . import line, parallel, pencil, slab  # noqa: F401,E402
 from .models import (Boussinesq3D, MHD3D, NavierStokes2D,  # noqa: F401,E402
                      NavierStokes3D, VorticityVelocity3D)
 

@@ -17,11 +17,14 @@ from ..utils import spectral
 
 
 def _hermitian_weights(FFT) -> torch.Tensor:
-    """Weights over the last spectral axis: 1 for k2 = 0 and Nyquist, 2 for
-    the interior (r2c layout)."""
-    nf = FFT.global_complex_shape()[-1]
-    k = np.arange(nf)
+    """Weights over this rank's block of the last spectral axis: 1 for
+    k2 = 0 and Nyquist, 2 for the interior (r2c layout), 0 for the
+    pencil's alignment lanes k2 >= Nf (structural zeros)."""
+    nfp = FFT.global_complex_shape()[-1]
+    k = np.arange(nfp)
     w = np.where((k == 0) | (k == int(FFT.N[-1]) // 2), 1.0, 2.0)
+    w[k >= int(FFT.N[-1]) // 2 + 1] = 0.0
+    w = w[FFT.local_spectral_slices("complex")[-1]]
     return torch.as_tensor(w, dtype=torch.float32, device=FFT.device)
 
 
@@ -55,8 +58,8 @@ def _packed_ksq(FFT, L):
     """|K|² over this rank's packed block (integer wavenumbers for
     ``L=None``)."""
     return spectral.ksq(*spectral.factored_wavenumbers(
-        FFT.N, L, int(FFT.N[2]) // 2, device=FFT.device, rank=FFT.rank,
-        P=FFT.P))
+        FFT.N, L, int(FFT.N[2]) // 2, device=FFT.device,
+        slices=FFT.local_spectral_slices("packed")))
 
 
 def energy_spectrum_packed(FFT, pair) -> np.ndarray:

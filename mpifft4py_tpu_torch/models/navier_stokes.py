@@ -9,11 +9,14 @@ Rotational form, velocity in spectral space:
     P(F̂) = F̂ − K (K·F̂)/|K|²                   (Leray projection).
 
 PyTorch runs eagerly: a step is a chain of tensor calls on the state's
-device, and ``run`` is a Python loop.  At P > 1 (a slab ``R2C`` over a
-process group) every rank steps its own block of the state — spectral
-k1 is cut, so the 1-D k1 vectors and masks are this rank's slices — and
-every sum over the field (energies, the band forcing's norm) is
-all-reduced over the group.  Only ``NavierStokes3D`` runs at P > 1 so far.
+device, and ``run`` is a Python loop.  At P > 1 (a slab or a pencil
+``R2C`` over a process group) every rank steps its own block of the
+state — the transform says which (``local_spectral_slices``: the slab
+cuts k1, the pencil k1 and k2 in the complex layout and k1 over P1·P2 in
+its WIDE packed layout), so the 1-D wavenumbers, masks and weights are
+this rank's slices — and every sum over the field (energies, the band
+forcing's norm) is all-reduced over the group.  Only ``NavierStokes3D``
+runs at P > 1 so far.
 
 * ``spectral_layout="complex"``: the state is a complex (3, N0, N1, Nf)
   tensor; each right-hand side does three batched transform calls
@@ -107,11 +110,11 @@ class SpectralSolver:
 
     def _factored_k(self):
         """1-D scaled wavenumbers (k0, k1, k2) matching complex_shape()
-        (k1 this rank's block), in FFT.float."""
+        (this rank's blocks), in FFT.float."""
         FFT = self.FFT
         return spectral.factored_wavenumbers(
             FFT.N, FFT.L, FFT.global_complex_shape()[2], FFT.float,
-            FFT.device, FFT.rank, FFT.P)
+            FFT.device, FFT.local_spectral_slices("complex"))
 
     def _complex_k_args(self):
         """(k0, k1, k2) of the complex layout, whatever the solver's own
@@ -141,24 +144,40 @@ class SpectralSolver:
                 "in the kernels' envelope, (N2/2) % 128 == 0 and "
                 "dealias='2/3-rule'")
 
-    def _packed_arrays(self, rank=None, P=None):
+    def _packed_arrays(self, local: bool = True):
         """The packed RHS's factored state: 1-D scaled wavenumbers
         (k0, k1, k2), k2 = 0..h−1, and 1-D 2/3-rule masks (m0, m1, m2), on
-        the device, k1/m1 this rank's block (the whole axis with ``rank=0,
-        P=1``).  No (3, N0, N1, h) K array is ever materialised."""
+        the device, cut to this rank's packed block (the whole axes with
+        ``local=False``).  No (3, N0, N1, h) K array is ever
+        materialised."""
         FFT = self.FFT
-        rank = FFT.rank if rank is None else rank
-        P = FFT.P if P is None else P
+        slices = FFT.local_spectral_slices("packed") if local else None
         return (spectral.factored_wavenumbers(FFT.N, FFT.L, int(FFT.N[2]) // 2,
                                               torch.float32, FFT.device,
-                                              rank, P)
-                + spectral.packed_dealias_masks(FFT.N, FFT.device, rank, P))
+                                              slices)
+                + spectral.packed_dealias_masks(FFT.N, FFT.device, slices))
+
+    def _packed_blocks_are_complex(self) -> bool:
+        """True where this rank's packed block holds the same (k0, k1) as
+        its complex block (the slab; the pencil at P2 == 1), so the two
+        layouts convert locally."""
+        FFT = self.FFT
+        return (FFT.local_spectral_slices("packed")[:2]
+                == FFT.local_spectral_slices("complex")[:2])
 
     def to_packed(self, U_hat):
-        """complex state (3,) + global_complex_shape() -> the packed state,
-        one (2, 3, N0, N1, N2/2) float32 tensor.  The state must be
-        Nyquist-free (guaranteed under the 2/3 rule)."""
-        return torch.stack(p3.pack_spectrum(U_hat))
+        """This rank's complex state (3,) + complex_shape() -> the packed
+        state, one (2, 3, N0, n1, N2/2) float32 tensor (the pencil's
+        alignment lanes dropped).  The state must be Nyquist-free
+        (guaranteed under the 2/3 rule).  Where the packed layout cuts
+        other axes than the complex one (the pencil at P2 > 1) the
+        conversion is not local: ValueError."""
+        if not self._packed_blocks_are_complex():
+            raise ValueError("to_packed: this transform's packed blocks are "
+                             "not its complex blocks; run forward_packed_fn "
+                             "on the physical field")
+        nf = int(self.FFT.N[2]) // 2 + 1
+        return torch.stack(p3.pack_spectrum(U_hat[..., :nf]))
 
     def from_packed(self, U):
         """The packed state (a (2, …) tensor or an (re, im) pair) -> the
@@ -255,7 +274,7 @@ class SpectralSolver:
             plans[key] = self.FFT.nl_forward_epilogue_fn(
                 mode, visc, dealias=self.dealias)
         if not hasattr(self, "_pk_global"):
-            self._pk_global = self._packed_arrays(rank=0, P=1)
+            self._pk_global = self._packed_arrays(local=False)
         d = plans[key](*args, *self._pk_global)
         return d if out is None else out.copy_(d)
 
@@ -354,10 +373,12 @@ class SpectralSolver:
 
 
 class NavierStokes3D(SpectralSolver):
-    """Pseudo-spectral NS3D over a ``slab.R2C`` transform, at any P.
+    """Pseudo-spectral NS3D over a ``slab.R2C`` or ``pencil.R2C``
+    transform, at any P (the pencil in both alignments; its packed layout
+    at P2 == 1 and in WIDE).
 
     Args:
-      FFT: a ``slab.R2C`` instance.
+      FFT: a ``slab.R2C`` or ``pencil.R2C`` instance.
       nu: kinematic viscosity.
       dt: timestep.
       dealias: None | "2/3-rule" | "3/2-rule", applied to the nonlinear
@@ -401,8 +422,11 @@ class NavierStokes3D(SpectralSolver):
         c2 = torch.cos(x2)[None, None, :]
         u0 = s0 * c1 * c2
         u = torch.stack([u0, -c0 * s1 * c2, torch.zeros_like(u0)])
-        fu = self._fwd_plain(u)
-        return self.to_packed(fu) if self.spectral_layout == "packed" else fu
+        if self.spectral_layout != "packed":
+            return self._fwd_plain(u)
+        if self._packed_blocks_are_complex():
+            return self.to_packed(self._fwd_plain(u))
+        return torch.stack(self._fwd_pk(u))
 
     def rhs(self, U_hat, k0, k1, k2):
         """dU_hat/dt from the factored 1-D wavenumbers (k0, k1, k2)."""

@@ -52,10 +52,11 @@ _SIGNATURES = {
     # visc, mode, ri, stream
     "fft_x_epilogue_launch": (_P,) * 15 + (_I, _I, _I, ctypes.c_float, _I,
                                           ctypes.c_float, _P),
-    # x, yr, yi, tw_h, tw_n, rows, n, nf, dbl, scale, stream
-    "planar_rfft_launch": (_P,) * 5 + (_L, _I, _I, _I, ctypes.c_float, _P),
-    # xr, xi, y, tw_h, tw_n, rows, n, nf_in, scale, stream
-    "planar_irfft_launch": (_P,) * 5 + (_L, _I, _I, ctypes.c_float, _P),
+    # x, yr, yi, tw_h, tw_n, rows, n, nf, ld, dbl, scale, stream
+    "planar_rfft_launch": (_P,) * 5 + (_L, _I, _I, _I, _I, ctypes.c_float,
+                                       _P),
+    # xr, xi, y, tw_h, tw_n, rows, n, nf_in, ld, scale, stream
+    "planar_irfft_launch": (_P,) * 5 + (_L, _I, _I, _I, ctypes.c_float, _P),
     # xr, xi, yr, yi, tw, rows, n, inverse, scale, stream
     "fft_last_launch": (_P,) * 5 + (_L, _I, _I, ctypes.c_float, _P),
     # the dense tier (rows 19-22, complex64 at the boundary):
@@ -74,6 +75,11 @@ _SIGNATURES = {
     "peer_fft_x_pull_launch": (_P,) * 4 + (_I,) * 6 + (_P,),
     # peers, xr, xi, tw, n0, n1, h, P, my, comps, stream
     "peer_ifft_x_push_launch": (_P,) * 4 + (_I,) * 6 + (_P,),
+    # the pencil's (rows 26-27): peers, yr, yi, tw, n1, w, P, my, rows,
+    # stream
+    "peer_fft_y_pull_launch": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # peers, xr, xi, tw, n1, w, P, my, rows, stream
+    "peer_ifft_y_push_launch": (_P,) * 4 + (_I,) * 5 + (_P,),
     # x, peers, dst_off, P, my, outer, ns, mid, nc, inner, split_first,
     # stream
     "peer_a2a_launch": (_P, _P, _L, _I, _I) + (_L,) * 5 + (_I, _P),

@@ -14,10 +14,14 @@
 //   (only when nf = h + 1) is (X[h], 0), both from the packed plane-0
 //   rider; with `dbl` column nf-1 is doubled (the Nyquist of the 3/2-rule
 //   z truncation); `scale` (1/padsize^3 there) is applied at the store;
-// - the c2r builds the packed row from nf_in columns: columns >= nf_in
-//   are zero (the pad), an interior column nf_in-1 is halved (the pad's
-//   halved Nyquist: with the c2r's weight 2 its net weight is 1), and
-//   column h rides plane 0 only when nf_in = h + 1; scale/n at the store.
+//   a spectral row is `ld` >= nf columns apart, and columns nf..ld-1 are
+//   stored as zeros (the pencil's alignment lanes up to Nfp, written
+//   straight into a peer-visible buffer);
+// - the c2r builds the packed row from nf_in columns of rows `ld` apart:
+//   columns >= nf_in are zero (the pad), an interior column nf_in-1 is
+//   halved (the pad's halved Nyquist: with the c2r's weight 2 its net
+//   weight is 1), and column h rides plane 0 only when nf_in = h + 1;
+//   scale/n at the store.
 //
 // The template parameter kC64 picks the spectrum's global layout: false,
 // the planar pair; true, interleaved complex64, for the dense tier's
@@ -73,7 +77,8 @@ __global__ void __launch_bounds__(1024)
 planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
                    float* __restrict__ yi, const float2* __restrict__ tw_h,
                    const float2* __restrict__ tw_n, Plan plan, int n,
-                   long long rows, int RB, int nf, int dbl, float scale) {
+                   long long rows, int RB, int nf, int ld, int dbl,
+                   float scale) {
   extern __shared__ float2 s[];
   const int h = n / 2;
   const int pitch = RB + 1;
@@ -97,7 +102,7 @@ planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
     const int k = e % kmax;
     if (row0 + rho >= rows) continue;
     const float2 X = packedz::untangle(s, pitch, rho, k, h, tw_n);
-    const long long g = (row0 + rho) * nf;
+    const long long g = (row0 + rho) * ld;
     const float w = k == nf - 1 ? last : scale;
     if (k == 0) {  // X = (X[0], X[h])
       put<kC64>(yr, yi, g, X.x * w, 0.f);
@@ -105,6 +110,12 @@ planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
     } else {
       put<kC64>(yr, yi, g + k, X.x * w, X.y * w);
     }
+  }
+  const int pad = ld - nf;
+  for (int e = threadIdx.x; e < pad * RB; e += blockDim.x) {
+    const int rho = e / pad;
+    if (row0 + rho < rows)
+      put<kC64>(yr, yi, (row0 + rho) * ld + nf + e % pad, 0.f, 0.f);
   }
 }
 
@@ -130,7 +141,8 @@ __global__ void __launch_bounds__(1024)
 planar_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     float* __restrict__ y, const float2* __restrict__ tw_h,
                     const float2* __restrict__ tw_n, Plan plan, int n,
-                    long long rows, int RB, int nf_in, float scale) {
+                    long long rows, int RB, int nf_in, int ld,
+                    float scale) {
   extern __shared__ float2 s[];
   const int h = n / 2;
   const int pitch = RB + 1;
@@ -141,7 +153,7 @@ planar_irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     const int k = e % h;
     float2 Z = make_float2(0.f, 0.f);
     if (row0 + rho < rows) {
-      const long long g = (row0 + rho) * nf_in;
+      const long long g = (row0 + rho) * ld;
       const float2 X = packed_in<kC64>(xr, xi, g, k, h, nf_in);
       if (k == 0) {
         // E0 = X[0] + X[h], O0 = X[0] - X[h]
@@ -240,60 +252,61 @@ irfft_full_kernel(const float2* __restrict__ x, float* __restrict__ y,
 
 template <bool kC64>
 int launch_rfft(const float* x, float* yr, float* yi, const void* tw_h,
-                const void* tw_n, long long rows, int n, int nf, int dbl,
-                float scale, void* stream) {
+                const void* tw_n, long long rows, int n, int nf, int ld,
+                int dbl, float scale, void* stream) {
   fftblock::RowGeometry g;
   const int bad = packedz::half_geometry(n, rows, &g);
   if (bad) return bad;
-  if (nf < 2 || nf > n / 2 + 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nf < 2 || nf > n / 2 + 1 || ld < nf)
+    return static_cast<int>(cudaErrorInvalidValue);
   return fftblock::launch_kernel(
       fftblock::mixed_plan(g.plan) ? planar_rfft_kernel<kC64, true>
                                    : planar_rfft_kernel<kC64, false>,
       g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream), x, yr,
       yi, static_cast<const float2*>(tw_h), static_cast<const float2*>(tw_n),
-      g.plan, n, rows, g.RB, nf, dbl, scale);
+      g.plan, n, rows, g.RB, nf, ld, dbl, scale);
 }
 
 template <bool kC64>
 int launch_irfft(const float* xr, const float* xi, float* y,
                  const void* tw_h, const void* tw_n, long long rows, int n,
-                 int nf_in, float scale, void* stream) {
+                 int nf_in, int ld, float scale, void* stream) {
   fftblock::RowGeometry g;
   const int bad = packedz::half_geometry(n, rows, &g);
   if (bad) return bad;
-  if (nf_in < 2 || nf_in > n / 2 + 1)
+  if (nf_in < 2 || nf_in > n / 2 + 1 || ld < nf_in)
     return static_cast<int>(cudaErrorInvalidValue);
   return fftblock::launch_kernel(
       fftblock::mixed_plan(g.plan) ? planar_irfft_kernel<kC64, true>
                                    : planar_irfft_kernel<kC64, false>,
       g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream), xr, xi,
       y, static_cast<const float2*>(tw_h), static_cast<const float2*>(tw_n),
-      g.plan, n, rows, g.RB, nf_in, scale);
+      g.plan, n, rows, g.RB, nf_in, ld, scale);
 }
 
 }  // namespace
 
-// Forward: x (rows, n) real -> (yr, yi) (rows, nf), 2 <= nf <= n/2 + 1,
-// even n <= 2048; dbl doubles column nf-1; every column is multiplied by
-// scale.  tw_h: n/2 float2 of exp(-2 pi i m/(n/2)); tw_n: n/2 float2 of
-// exp(-2 pi i k/n).
+// Forward: x (rows, n) real -> (yr, yi) (rows, ld), 2 <= nf <= n/2 + 1,
+// nf <= ld, even n <= 2048: columns nf..ld-1 are zeros; dbl doubles column
+// nf-1; every column is multiplied by scale.  tw_h: n/2 float2 of
+// exp(-2 pi i m/(n/2)); tw_n: n/2 float2 of exp(-2 pi i k/n).
 extern "C" int planar_rfft_launch(const float* x, float* yr, float* yi,
                                   const void* tw_h, const void* tw_n,
-                                  long long rows, int n, int nf, int dbl,
-                                  float scale, void* stream) {
-  return launch_rfft<false>(x, yr, yi, tw_h, tw_n, rows, n, nf, dbl, scale,
-                            stream);
+                                  long long rows, int n, int nf, int ld,
+                                  int dbl, float scale, void* stream) {
+  return launch_rfft<false>(x, yr, yi, tw_h, tw_n, rows, n, nf, ld, dbl,
+                            scale, stream);
 }
 
-// Inverse: (xr, xi) (rows, nf_in) -> y (rows, n) real, 2 <= nf_in <=
-// n/2 + 1, scaled by scale/n.  tw_h and tw_n as above with the opposite
-// sign, exp(+...).
+// Inverse: the first nf_in columns of (xr, xi) (rows, ld) -> y (rows, n)
+// real, 2 <= nf_in <= n/2 + 1, nf_in <= ld, scaled by scale/n.  tw_h and
+// tw_n as above with the opposite sign, exp(+...).
 extern "C" int planar_irfft_launch(const float* xr, const float* xi, float* y,
                                    const void* tw_h, const void* tw_n,
-                                   long long rows, int n, int nf_in,
+                                   long long rows, int n, int nf_in, int ld,
                                    float scale, void* stream) {
-  return launch_irfft<false>(xr, xi, y, tw_h, tw_n, rows, n, nf_in, scale,
-                             stream);
+  return launch_irfft<false>(xr, xi, y, tw_h, tw_n, rows, n, nf_in, ld,
+                             scale, stream);
 }
 
 // Row 21 at even n <= 2048: x (rows, n) real -> y (rows, n/2 + 1)
@@ -302,7 +315,7 @@ extern "C" int rfft_c64_launch(const float* x, void* y, const void* tw_h,
                                const void* tw_n, long long rows, int n,
                                void* stream) {
   return launch_rfft<true>(x, static_cast<float*>(y), nullptr, tw_h, tw_n,
-                           rows, n, n / 2 + 1, 0, 1.f, stream);
+                           rows, n, n / 2 + 1, n / 2 + 1, 0, 1.f, stream);
 }
 
 // Row 22 at even n <= 2048: x (rows, n/2 + 1) complex64 -> y (rows, n)
@@ -311,7 +324,8 @@ extern "C" int irfft_c64_launch(const void* x, float* y, const void* tw_h,
                                 const void* tw_n, long long rows, int n,
                                 void* stream) {
   return launch_irfft<true>(static_cast<const float*>(x), nullptr, y, tw_h,
-                            tw_n, rows, n, n / 2 + 1, 1.f, stream);
+                            tw_n, rows, n, n / 2 + 1, n / 2 + 1, 1.f,
+                            stream);
 }
 
 // Rows 21-22 full-length, any 2 <= n <= 1024 (the wrappers take them at

@@ -279,38 +279,51 @@ def irfft_last_packed(xr, xi, n: int, dif: bool = False):
 # The reference pads the spectral width to a multiple of 128 lanes (a TPU
 # workaround); the port's spectra have exactly nf columns.
 
-def rfft_last_planar_ref(x, nf=None, scale: float = 1.0):
+def rfft_last_planar_ref(x, nf=None, scale: float = 1.0, width=None):
     full = x.shape[-1] // 2 + 1
     nf = full if nf is None else nf
     X = torch.fft.rfft(x, dim=-1)[..., :nf]
     if nf < full:
         X = torch.cat([X[..., :-1], 2.0 * X[..., -1:]], dim=-1)
     X = X * scale
+    if width is not None and width > nf:
+        X = torch.cat([X, X.new_zeros(X.shape[:-1] + (width - nf,))], -1)
     return X.real.contiguous(), X.imag.contiguous()
 
 
-def rfft_last_planar(x, nf=None, scale: float = 1.0):
-    """real (…, n) -> planar (re, im) of shape (…, nf), nf = n//2+1 when
-    None.  ``nf`` < n//2+1 truncates with column nf−1 doubled (the 3/2
-    rule's z truncation); ``scale`` multiplies every column."""
-    on_cpu = _check_float32(x)
+def rfft_last_planar(x, nf=None, scale: float = 1.0, width=None, out=None):
+    """real (…, n) -> planar (re, im) of shape (…, width), nf = n//2+1 and
+    width = nf when None.  ``nf`` < n//2+1 truncates with column nf−1
+    doubled (the 3/2 rule's z truncation); ``scale`` multiplies every
+    column; columns nf..width−1 are zeros (the pencil's alignment padding
+    to Nfp).  ``out``: a contiguous (re, im) pair of the result's shape to
+    write into (the pencil's z stage writes into a peer-visible buffer);
+    returned."""
+    on_cpu = _check_float32(x, *(out or ()))
     n = int(x.shape[-1])
     full = n // 2 + 1
     nf = full if nf is None else int(nf)
-    if not supported_r2c(n) or not 2 <= nf <= full:
-        raise ValueError(f"rfft_last_planar: n={n}, nf={nf} outside the "
-                         f"kernel envelope")
+    width = nf if width is None else int(width)
+    if not supported_r2c(n) or not 2 <= nf <= full or width < nf:
+        raise ValueError(f"rfft_last_planar: n={n}, nf={nf}, width={width} "
+                         f"outside the kernel envelope")
+    shape = x.shape[:-1] + (width,)
+    if out is not None and any(o.shape != shape for o in out):
+        raise ValueError(f"rfft_last_planar: out must be a pair of shape "
+                         f"{tuple(shape)}")
     if on_cpu:
-        return rfft_last_planar_ref(x, nf, scale)
+        yr, yi = rfft_last_planar_ref(x, nf, scale, width)
+        return (yr, yi) if out is None else (out[0].copy_(yr),
+                                             out[1].copy_(yi))
     h = n // 2
-    yr = torch.empty(x.shape[:-1] + (nf,), dtype=torch.float32,
-                     device=x.device)
-    yi = torch.empty_like(yr)
+    yr, yi = out if out is not None else (
+        torch.empty(shape, dtype=torch.float32, device=x.device),
+        torch.empty(shape, dtype=torch.float32, device=x.device))
     _launch("planar_rfft_last", "planar_rfft_launch", x.data_ptr(),
             yr.data_ptr(), yi.data_ptr(),
             _twiddles(h, h, -1, x.device).data_ptr(),
             _twiddles(n, h, -1, x.device).data_ptr(),
-            x.numel() // n, n, nf, int(nf < full), float(scale),
+            x.numel() // n, n, nf, width, int(nf < full), float(scale),
             device=x.device)
     return yr, yi
 
@@ -325,17 +338,19 @@ def irfft_last_planar_ref(xr, xi, n: int, nf_in=None, scale: float = 1.0):
 
 
 def irfft_last_planar(xr, xi, n: int, nf_in=None, scale: float = 1.0):
-    """planar (…, nf_in) -> real (…, n), scaled by ``scale``/n; nf_in =
-    n//2+1 when None.  ``nf_in`` < n//2+1 zero-pads to n//2+1 with the
-    input's last column at weight 1 (the 3/2 rule's z pad, whose Nyquist
-    split halves it); the width must be exactly nf_in."""
+    """planar (…, width) -> real (…, n), scaled by ``scale``/n, from the
+    first nf_in columns (nf_in = n//2+1 when None; width >= nf_in, the
+    columns beyond read as absent: the pencil's alignment padding).
+    ``nf_in`` < n//2+1 zero-pads to n//2+1 with column nf_in−1 at weight 1
+    (the 3/2 rule's z pad, whose Nyquist split halves it)."""
     on_cpu = _check_float32(xr, xi)
     _check_pair(xr, xi)
     full = n // 2 + 1
     cut = full if nf_in is None else int(nf_in)
-    if not supported_r2c(n) or not 2 <= cut <= full or xr.shape[-1] != cut:
+    width = int(xr.shape[-1])
+    if not supported_r2c(n) or not 2 <= cut <= full or width < cut:
         raise ValueError(f"irfft_last_planar: n={n}, nf_in={cut} with width "
-                         f"{xr.shape[-1]} outside the kernel envelope")
+                         f"{width} outside the kernel envelope")
     if on_cpu:
         return irfft_last_planar_ref(xr, xi, n, cut, scale)
     h = n // 2
@@ -345,7 +360,8 @@ def irfft_last_planar(xr, xi, n: int, nf_in=None, scale: float = 1.0):
             xi.data_ptr(), y.data_ptr(),
             _twiddles(h, h, 1, xr.device).data_ptr(),
             _twiddles(n, h, 1, xr.device).data_ptr(),
-            xr.numel() // cut, n, cut, float(scale), device=xr.device)
+            xr.numel() // width, n, cut, width, float(scale),
+            device=xr.device)
     return y
 
 

@@ -1,5 +1,7 @@
-"""The distributed tier: the slab's process group (``mesh``), the
-runtime (``runtime.initialize``), the collective transposes
-(``collectives``) and the peer-memory kernels of rows 23-25 (``rdma``)."""
+"""The distributed tier: the slab's process group and the pencil's grid of
+sub-groups (``mesh``), the runtime (``runtime.initialize``,
+``runtime.hybrid_mesh``), the collective transposes (``collectives``) and
+the peer-memory kernels of rows 23-27 (``rdma``)."""
 
-from .mesh import check_divisible, slab_group  # noqa: F401
+from .mesh import (check_divisible, pencil_comm, pencil_groups,  # noqa: F401
+                   slab_group)

@@ -1,15 +1,18 @@
-"""The slab transpose over peer memory: rows 23-25 (``communication="rdma"``).
+"""The transposes over peer memory: rows 23-27 (``communication="rdma"``).
 
-Port of ``mpifft4py_tpu/parallel/rdma.py``'s slab kernels.  On the TPU
-each is one Pallas kernel that posts per-peer remote DMAs over ICI.  Here
-each rank of the slab group owns a *symmetric buffer* per shape: a
-``torch.empty`` allocated once and never resized, whose CUDA IPC handle
+Port of ``mpifft4py_tpu/parallel/rdma.py``.  On the TPU each is one
+Pallas kernel that posts per-peer remote DMAs over ICI.  Here each rank of
+a group (the slab's, or one of the pencil's sub-groups: a ``PeerGroup`` a
+group, its buffers exchanged within that group only) owns a *symmetric
+buffer* per shape: a ``torch.empty`` allocated once and never resized,
+whose CUDA IPC handle
 (``torch.multiprocessing.reductions.reduce_tensor``) every rank receives
 through ``dist.all_gather_object`` and opens, so a device table of P base
 pointers lets one kernel load from or store into every rank's buffer.  On
 one card (P processes sharing it, a gloo group) the peers' buffers are in
 the same HBM; across cards the same loads and stores ride NVLink.  Three
-hand-written CUDA kernels (``ops/csrc/``):
+hand-written CUDA kernels (``ops/csrc/``; rows 24-27 are one kernel over
+(outer, n, inner) strides, with an entry point each):
 
 * ``peer_a2a`` (row 23, ``rdma_all_to_all``): the tiled all-to-all as a
   strided block copy, block d of this rank's input pushed to slot ``my`` of
@@ -21,7 +24,14 @@ hand-written CUDA kernels (``ops/csrc/``):
   peers' buffers (the zy stage wrote its pair there);
 * ``peer_ifft_x`` (row 25, ``fused_ifft_x_transpose``): the inverse x c2c
   (1/N0) fused with the send, pushing each x-line's rows into the peers'
-  buffers, where the zy inverse reads them.
+  buffers, where the zy inverse reads them;
+* ``peer_fft_y`` (row 26, ``fused_transpose_fft_y``): the pencil forward's
+  P2-group receive fused with the y c2c, pulling each y-line's N1 points
+  (this rank's lane block of every peer's z-transformed pair, which the z
+  stage wrote into the buffer);
+* ``peer_ifft_y`` (row 27, ``fused_ifft_y_transpose``): the inverse y c2c
+  (1/N1) fused with the send, pushing each y-line's rows into the peers'
+  buffers at this rank's lane block, where the z inverse reads them.
 
 Ordering is on the host, with no in-kernel waiting on another process
 (ranks sharing a card run by time slices, so a kernel spinning on a peer's
@@ -54,11 +64,14 @@ from . import collectives
 
 __all__ = ["LAUNCHES", "reset_launches", "SymmetricBuffer", "PeerGroup",
            "a2a_push", "a2a_push_ref", "fft_x_pull", "fft_x_pull_ref",
-           "ifft_x_push", "ifft_x_push_ref", "rdma_supported",
+           "ifft_x_push", "ifft_x_push_ref", "fft_y_pull", "fft_y_pull_ref",
+           "ifft_y_push", "ifft_y_push_ref", "rdma_supported",
            "rdma_all_to_all", "rdma_all_gather", "fused_transpose_fft_x",
-           "fused_ifft_x_transpose"]
+           "fused_ifft_x_transpose", "fused_transpose_fft_y",
+           "fused_ifft_y_transpose"]
 
-LAUNCHES = {"peer_a2a": 0, "peer_fft_x": 0, "peer_ifft_x": 0}
+LAUNCHES = {"peer_a2a": 0, "peer_fft_x": 0, "peer_ifft_x": 0,
+            "peer_fft_y": 0, "peer_ifft_y": 0}
 
 
 def reset_launches() -> None:
@@ -144,9 +157,10 @@ class SymmetricBuffer:
 
 
 class PeerGroup:
-    """The slab group's symmetric buffers, one per shape, created at first
-    use (a collective: every rank asks for the same shapes in the same
-    order, as SPMD code does) and kept for the life of the plan."""
+    """A group's symmetric buffers, one per shape, created at first use (a
+    collective of the group: every rank of it asks for the same shapes in
+    the same order, as SPMD code does) and kept for the life of the
+    plan."""
 
     def __init__(self, group, P: int, rank: int, device):
         self.group, self.P, self.rank = group, int(P), int(rank)
@@ -170,10 +184,10 @@ class PeerGroup:
         dist.barrier(group=self.group)
         self.fence_seconds += time.perf_counter() - t0
 
-    def x_planes(self, shape):
-        """(re, im) views of this rank's symmetric buffer for a slab pair
-        of ``shape`` (…, Np0, N1, h): where the forward's zy stage writes,
-        and where the backward's x stage lands."""
+    def planes(self, shape):
+        """(re, im) views of this rank's symmetric buffer (2, C, a, b, c)
+        for a planar pair of ``shape`` (…, a, b, c): where a forward's
+        stage before rows 24/26 writes, and where rows 25/27 land."""
         C = math.prod(shape[:-3])
         mine = self.buffer((2, C) + tuple(shape[-3:])).mine()
         return mine[0].view(shape), mine[1].view(shape)
@@ -328,7 +342,91 @@ def ifft_x_push(xr, xi, buf: SymmetricBuffer, my: int) -> None:
             h, buf.P, my, C, device=xr.device)
 
 
-# -- the group-level functions (the slab's "rdma" communication) -------------------
+# -- rows 26-27: the pencil's P2 transpose fused with the y c2c --------------------
+
+def _y_geometry(buf, my, C, n0, n1, W):
+    P = buf.P
+    if W % P or n1 % P:
+        raise ValueError(f"(N1, W) = ({n1}, {W}) not divisible by {P}")
+    if not p3.supported_c2c(n1):
+        raise ValueError(f"N1={n1} outside the kernel envelope")
+    _check_buf(buf, my, (2, C, n0, n1 // P, W))
+
+
+def fft_y_pull_ref(buf, my: int):
+    """Rank ``my``'s lane block of every buffer (2, C, n0, N1/P, W),
+    concatenated along y and y-transformed: a (2, C, n0, N1, W/P)
+    tensor."""
+    w2 = buf.tensors[0].shape[-1] // buf.P
+    g = torch.cat([t[..., my * w2:(my + 1) * w2] for t in buf.tensors],
+                  dim=3)
+    return torch.stack(p3.fft_axis_planar_ref(g[0].contiguous(),
+                                              g[1].contiguous(), axis=2))
+
+
+def fft_y_pull(buf: SymmetricBuffer, my: int, out=None) -> torch.Tensor:
+    """Row 26 as rank ``my``: every buffer holds a rank's z-transformed
+    pair (2, C, n0, N1/P, W), W = P·w2 lanes; returns rank ``my``'s
+    (2, C, n0, N1, w2): its lane block [my·w2, (my+1)·w2) of every peer,
+    the peers' rows in rank order along y, y transformed.  ``out``: a
+    contiguous (re, im) pair of the result's planes to write into (the
+    buffer of the x stage that follows); the result is then their stack's
+    view, or a new tensor on the CPU."""
+    _, C, n0, n1loc, W = buf.tensors[0].shape
+    n1 = n1loc * buf.P
+    _y_geometry(buf, my, C, n0, n1, W)
+    shape = (C, n0, n1, W // buf.P)
+    if out is not None and any(tuple(o.shape) != shape or
+                               not o.is_contiguous() for o in out):
+        raise ValueError(f"fft_y_pull: out must be a contiguous pair of "
+                         f"shape {shape}")
+    if _on_cpu(*buf.tensors):
+        y = fft_y_pull_ref(buf, my)
+        if out is not None:
+            out[0].copy_(y[0])
+            out[1].copy_(y[1])
+        return y
+    dev = buf.tensors[0].device
+    if out is None:
+        y = torch.empty((2,) + shape, dtype=torch.float32, device=dev)
+        out = (y[0], y[1])
+    else:
+        y = None
+    _launch("peer_fft_y", "peer_fft_y_pull_launch", buf.table().data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(),
+            p3._twiddles(n1, n1, -1, dev).data_ptr(), n1, W, buf.P, my,
+            C * n0, device=dev)
+    return y if y is not None else out
+
+
+def ifft_y_push_ref(xr, xi, buf, my: int) -> None:
+    yr, yi = p3.fft_axis_planar_ref(xr, xi, axis=2, inverse=True)
+    P = buf.P
+    n1loc, w2 = xr.shape[2] // P, xr.shape[3]
+    for d, t in enumerate(buf.tensors):
+        rows = slice(d * n1loc, (d + 1) * n1loc)
+        t[0, ..., my * w2:(my + 1) * w2] = yr[:, :, rows]
+        t[1, ..., my * w2:(my + 1) * w2] = yi[:, :, rows]
+
+
+def ifft_y_push(xr, xi, buf: SymmetricBuffer, my: int) -> None:
+    """Row 27 as rank ``my``: the inverse y c2c (1/N1) of rank ``my``'s
+    spectrum (C, n0, N1, w2), rows d·N1/P… stored into rank d's buffer
+    (2, C, n0, N1/P, P·w2) at lanes my·w2…"""
+    if xr.shape != xi.shape or xr.ndim != 4:
+        raise ValueError(f"ifft_y_push takes a (C, n0, N1, w2) pair, got "
+                         f"{tuple(xr.shape)}, {tuple(xi.shape)}")
+    C, n0, n1, w2 = xr.shape
+    _y_geometry(buf, my, C, n0, n1, w2 * buf.P)
+    if _on_cpu(xr, xi, *buf.tensors):
+        return ifft_y_push_ref(xr, xi, buf, my)
+    _launch("peer_ifft_y", "peer_ifft_y_push_launch", buf.table().data_ptr(),
+            xr.data_ptr(), xi.data_ptr(),
+            p3._twiddles(n1, n1, 1, xr.device).data_ptr(), n1, w2 * buf.P,
+            buf.P, my, C * n0, device=xr.device)
+
+
+# -- the group-level functions ("rdma" communication) -------------------
 
 def _leaves(x):
     leaves = x if isinstance(x, tuple) else (x,)
@@ -381,7 +479,7 @@ def fused_transpose_fft_x(yr, yi, peers: PeerGroup):
     """The slab forward's x stage: planar pair (…, Np0, N1, h) → (…, N0,
     Np1, h), transposed and x-transformed — row 24 on the card (the pair
     is copied into the symmetric buffer unless it is already the buffer's,
-    ``peers.x_planes``), ``all_to_all_single`` + ``fft_axis_planar_ref``
+    ``peers.planes``), ``all_to_all_single`` + ``fft_axis_planar_ref``
     on the CPU."""
     _leaves((yr, yi))
     off = yr.ndim - 3
@@ -389,7 +487,7 @@ def fused_transpose_fft_x(yr, yi, peers: PeerGroup):
         yr, yi = collectives.transpose((yr, yi), peers.group, 1 + off, off)
         return p3.fft_axis_planar_ref(yr, yi, axis=off)
     lead, (np0, n1, h) = tuple(yr.shape[:off]), tuple(yr.shape[off:])
-    br, bi = peers.x_planes(yr.shape)
+    br, bi = peers.planes(yr.shape)
     if yr.data_ptr() != br.data_ptr() or yi.data_ptr() != bi.data_ptr():
         br.copy_(yr)
         bi.copy_(yi)
@@ -420,4 +518,56 @@ def fused_ifft_x_transpose(yr, yi, peers: PeerGroup):
     ifft_x_push(yr.contiguous().view(C, n0, np1, h),
                 yi.contiguous().view(C, n0, np1, h), buf, peers.rank)
     peers.fence()
-    return peers.x_planes(shape)
+    return peers.planes(shape)
+
+
+def fused_transpose_fft_y(yr, yi, peers: PeerGroup, out=None):
+    """The pencil forward's y stage over the P2 group: planar pair
+    (…, n0, N1/P, W) → (…, n0, N1, W/P), split along the lanes, gathered
+    along y and y-transformed — row 26 on the card (the pair is copied into
+    the symmetric buffer unless it is already the buffer's,
+    ``peers.planes``; ``out`` as for ``fft_y_pull``),
+    ``all_to_all_single`` + ``fft_axis_planar_ref`` on the CPU."""
+    _leaves((yr, yi))
+    off = yr.ndim - 3
+    if yr.device.type == "cpu":
+        yr, yi = collectives.transpose((yr, yi), peers.group, 2 + off,
+                                       1 + off)
+        return p3.fft_axis_planar_ref(yr, yi, axis=1 + off)
+    lead, (n0, n1loc, W) = tuple(yr.shape[:off]), tuple(yr.shape[off:])
+    br, bi = peers.planes(yr.shape)
+    if yr.data_ptr() != br.data_ptr() or yi.data_ptr() != bi.data_ptr():
+        br.copy_(yr)
+        bi.copy_(yi)
+    C = math.prod(lead)
+    buf = peers.buffer((2, C, n0, n1loc, W))
+    shape = lead + (n0, n1loc * peers.P, W // peers.P)
+    flat = (C, n0, n1loc * peers.P, W // peers.P)
+    peers.fence()
+    got = fft_y_pull(buf, peers.rank, None if out is None else
+                     tuple(o.view(flat) for o in out))
+    peers.fence()
+    return got[0].view(shape), got[1].view(shape)
+
+
+def fused_ifft_y_transpose(yr, yi, peers: PeerGroup):
+    """The pencil backward's y stage over the P2 group: planar pair
+    (…, n0, N1, w2) → (…, n0, N1/P, P·w2), inverse y-transformed (1/N1),
+    split along y and gathered along the lanes — row 27 on the card,
+    landing in this rank's symmetric buffer (a view, consumed by the z
+    inverse), ``fft_axis_planar_ref`` + ``all_to_all_single`` on the
+    CPU."""
+    _leaves((yr, yi))
+    off = yr.ndim - 3
+    if yr.device.type == "cpu":
+        yr, yi = p3.fft_axis_planar_ref(yr, yi, axis=1 + off, inverse=True)
+        return collectives.transpose((yr, yi), peers.group, 1 + off, 2 + off)
+    lead, (n0, n1, w2) = tuple(yr.shape[:off]), tuple(yr.shape[off:])
+    shape = lead + (n0, n1 // peers.P, w2 * peers.P)
+    C = math.prod(lead)
+    buf = peers.buffer((2, C, n0, n1 // peers.P, w2 * peers.P))
+    peers.fence()
+    ifft_y_push(yr.contiguous().view(C, n0, n1, w2),
+                yi.contiguous().view(C, n0, n1, w2), buf, peers.rank)
+    peers.fence()
+    return peers.planes(shape)

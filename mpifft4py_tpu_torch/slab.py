@@ -55,10 +55,222 @@ from .ops import fft_core as fc
 from .parallel import rdma
 from .parallel.mesh import check_divisible
 from .utils.spectral import (dealias_cutoffs, pad_full_axis, pad_half_axis,
-                             trunc_full_axis, trunc_half_axis)
+                             trunc_full_axis, trunc_half_axis,
+                             wavenumbers_full)
 from .utils.transfer import device_put
 
 __all__ = ["R2C", "C2C"]
+
+
+class _PackedDist1D:
+    """The packed planar pipeline of an R2C transform whose distributed
+    choreography is ONE transpose: the slab always, the pencil when its
+    second grid axis is degenerate (P2 == 1: the P2 transpose vanishes and
+    what remains is the slab's, over the P1 group).  The counterpart of the
+    reference's ``_PackedDist1D`` (``mpifft4py_tpu/slab.py``), a mixin over
+    ``BaseFFT``: ``_pk_ride`` is the ``(ProcessGroup, PeerGroup | None)``
+    pair its transpose and plane-0 gathers ride (the slab's whole group by
+    default), ``_pk_cut`` the (parts, index) of this rank's k1 block of the
+    packed pair.  Leading axes (component stacks) batch."""
+
+    _has_packed = True
+
+    @property
+    def _pk_ride(self):
+        return self.group, self._peers
+
+    @property
+    def _pk_cut(self):
+        return self.P, self.rank
+
+    @property
+    def packed_z_perm(self):
+        """lane → k2 map of the packed pair's last axis: always None, the
+        natural 0..h−1 order (the reference's zdif lane order at N2 >= 512
+        does not carry over)."""
+        return None
+
+    def _peer_kernels(self, t) -> bool:
+        """Rows 24/25 carry the x stage: "rdma" at P > 1 on the card."""
+        return self._pk_ride[1] is not None and t.device.type == "cuda"
+
+    def _pair_fwd(self, u):
+        """real (…, Np0, N1, N2) -> packed planar pair (…, N0, Np1, h), all
+        three axes transformed: the packed z r2c and the y c2c, then the
+        transpose and the x c2c — fused in row 24 under "rdma" (the y stage
+        writes straight into this rank's symmetric buffer)."""
+        u = u.contiguous()
+        off = u.ndim - 3
+        peers = self._pk_ride[1]
+        yr, yi = p3.rfft_last_packed(u)
+        if peers is not None:
+            out = (peers.planes(yr.shape) if self._peer_kernels(u)
+                   else None)
+            yr, yi = p3.fft_axis_planar(yr, yi, off + 1, out=out)
+            return rdma.fused_transpose_fft_x(yr, yi, peers)
+        yr, yi = p3.fft_axis_planar(yr, yi, off + 1)
+        return self._stage(
+            (yr, yi), off + 1, off,
+            lambda t: p3.fft_axis_planar(t[0].contiguous(),
+                                         t[1].contiguous(), off),
+            pipeline_axis=off + 2, ride=self._pk_ride)
+
+    def _pair_bwd(self, pair):
+        """packed planar pair (…, N0, Np1, h) -> real (…, Np0, N1, N2): the
+        x inverse and the transpose (row 25 under "rdma"), then the y
+        inverse and the packed z c2r.  Takes the pair as one tuple and
+        drops it, so the input is freed once the x stage has run."""
+        yr, yi = pair
+        del pair
+        off = yr.ndim - 3
+        peers = self._pk_ride[1]
+        if peers is not None:
+            yr, yi = rdma.fused_ifft_x_transpose(yr.contiguous(),
+                                                 yi.contiguous(), peers)
+        else:
+            yr, yi = self._stage(
+                (yr, yi), off, off + 1, pipeline_axis=off + 2,
+                pre_fn=lambda t: p3.fft_axis_planar(
+                    t[0].contiguous(), t[1].contiguous(), off, inverse=True),
+                ride=self._pk_ride)
+        return p3.fused_zy_bwd(yr.contiguous(), yi.contiguous(),
+                               int(self.N[2]))
+
+    def _pk_flipconj(self, qr, qi):
+        """conj(Q(−k0, −k1)) of a packed (…, N0, n1) plane, k1 cut as the
+        packed pair's."""
+        return self._flipconj_plane(qr, qi, self._pk_ride, self._pk_cut)
+
+    def _unpack(self, yr, yi):
+        """packed pair (…, N0, n1, h) -> complex (…, N0, n1, h + 1): the
+        plane-0 riders separated over the gathered (k0, k1) plane."""
+        qr, qi = yr[..., 0], yi[..., 0]
+        cr, ci = self._pk_flipconj(qr, qi)
+        p0 = torch.complex(0.5 * (qr + cr), 0.5 * (qi + ci))
+        pny = torch.complex(0.5 * (qi - ci), -0.5 * (qr - cr))
+        body = torch.complex(yr[..., 1:], yi[..., 1:])
+        return torch.cat([p0[..., None], body, pny[..., None]], dim=-1)
+
+    def _purify(self, yr, yi):
+        """Drop the Nyquist rider from packed plane 0 in place (→ X0
+        exactly): ``ops.fft3d.purify_plane0_dus`` over the gathered
+        plane."""
+        qr, qi = yr[..., 0], yi[..., 0]
+        cr, ci = self._pk_flipconj(qr, qi)
+        qr.copy_(0.5 * (qr + cr))
+        qi.copy_(0.5 * (qi + ci))
+        return yr, yi
+
+    def _packed_mask_local(self, h):
+        """2/3-rule mask (N0, n1, h) over this rank's packed block (k2 =
+        0..h−1), built once."""
+        if getattr(self, "_pk_mask", None) is None:
+            c = dealias_cutoffs(self.N)
+            s0, s1, _ = self.local_spectral_slices("packed")
+            k0, k1 = (torch.from_numpy(wavenumbers_full(int(n))[s]).to(
+                self.device) for n, s in zip(self.N[:2], (s0, s1)))
+            k2 = torch.arange(h, device=self.device)
+            self._pk_mask = ((k0.abs()[:, None, None] < c[0])
+                             & (k1.abs()[None, :, None] < c[1])
+                             & (k2[None, None, :] < c[2]))
+        return self._pk_mask
+
+    def forward_packed_fn(self, dealias=None):
+        """real (…, n0, n1, N2) -> this rank's block of the packed planar
+        pair (…, N0, N1/parts, N2/2), no complex boundary.  Plane k2 = 0
+        carries X0 + i·X_Nyquist; with the 2/3 rule the rider is purified
+        away and the pair is the masked spectrum on k2 = 0..h−1.  Leading
+        dims batch."""
+        self._packed_gate_is_serial(dealias)
+        return lambda u: self._fwd_packed(u, dealias)
+
+    def _fwd_packed(self, u, dealias):
+        yr, yi = self._pair_fwd(u)
+        if dealias == "2/3-rule":
+            self._purify(yr, yi)
+            keep = self._packed_mask_local(yr.shape[-1])
+            yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
+        return yr, yi
+
+    def backward_packed_fn(self, dealias=None):
+        """Inverse of ``forward_packed_fn`` (same envelope): a pair (or a
+        (2, …) tensor) -> real (…, n0, n1, N2)."""
+        self._packed_gate_is_serial(dealias)
+
+        def bwd(pair):
+            yr, yi = pair
+            if dealias == "2/3-rule":
+                keep = self._packed_mask_local(yr.shape[-1])
+                yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
+            return self._pair_bwd((yr, yi))
+        return bwd
+
+    # -- the complex interface over the packed pipeline ------------------------------
+
+    def _fwd_packed_complex(self, u, dealias):
+        if dealias == "2/3-rule":
+            # mask in the packed planar domain (the packed forward: purify
+            # the Nyquist rider, mask the pair), emit a zero Nyquist column
+            x = torch.complex(*self._fwd_packed(u, dealias))
+            return torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
+        return self._unpack(*self._pair_fwd(u))
+
+    def _bwd_packed_complex(self, fu, dealias):
+        if dealias == "2/3-rule":
+            fu = self._masked(fu)
+        return self._pair_bwd(p3.pack_spectrum(fu))
+
+    # -- the packed solvers' nonlinear forward -----------------------------------------
+
+    def _nl_pair(self, phys, op):
+        """The nonlinear forward's product under the z and y forwards and
+        the transpose: a pair (…, N0, n1, h), x pending (rows 12/15's
+        kernel, then row 1, then the transpose: row 23 under "rdma")."""
+        if op == "mul":
+            fzr, fzi = p3.mul_rfft_zy_packed(*phys)
+        else:
+            fzr, fzi = p3.cross_rfft_zy_packed(*phys)
+        return self._stage((fzr, fzi), 2, 1, pipeline_axis=3,
+                           ride=self._pk_ride)
+
+    def nl_forward_epilogue_fn(self, mode: str, visc: float, op: str = "cross",
+                               ri=None, dealias="2/3-rule"):
+        """The packed solvers' whole nonlinear forward at any P: the product
+        with the packed z r2c and the y c2c (``_nl_pair``), the transpose,
+        the x c2c with the mask, the ``mode`` epilogue and −visc·k²·S on
+        this rank's k1/m1 block (row 14), then the plane-0 purify over the
+        gathered plane.  Returns a function
+
+            (A, B[, C, D][, Tr, Ti], Sr, Si, k0, k1, k2, m0, m1, m2) -> d
+
+        with A/B/C/D this rank's physical 3-stacks (B a (1, …) field for
+        op="mul"), (Sr, Si) the packed state (a 3-stack, a 1-stack for mode
+        "div"), (Tr, Ti) the buoyancy rider (``ri`` set), and the GLOBAL
+        1-D wavenumber/mask vectors (k1/m1 are cut here).  ``d`` is a
+        (2, ns, N0, n1, h) tensor whose [0]/[1] are the increment's re/im
+        planes."""
+        if not self._nl_dist_ok(dealias):
+            raise ValueError("nl_forward_epilogue_fn needs the packed "
+                             "interface's envelope and dealias='2/3-rule'")
+        if op not in ("cross", "cross2", "mul"):
+            raise ValueError(f"op must be 'cross', 'cross2' or 'mul', got "
+                             f"{op!r}")
+        nphys = 4 if op == "cross2" else 2
+        blk = self.local_spectral_slices("packed")[1]
+
+        def fn(*xs):
+            phys, xs = xs[:nphys], xs[nphys:]
+            buoy = None
+            if ri is not None:
+                buoy, xs = (xs[0], xs[1], ri), xs[2:]
+            sr, si, k0, k1, k2, m0, m1, m2 = xs
+            fzr, fzi = self._nl_pair(phys, op)
+            d = p3.fft_x_epilogue_packed(
+                fzr.contiguous(), fzi.contiguous(), sr, si, k0, k1[blk], k2,
+                m0, m1[blk], m2, mode, visc, buoy=buoy)
+            self._purify(d[0], d[1])
+            return d
+        return fn
 
 
 class _Slab3D(BaseFFT):
@@ -149,7 +361,7 @@ class _Slab3D(BaseFFT):
         N0, N1, N2 = (int(n) for n in self.N)
         k2 = (full(N2) if self._lastf == N2
               else torch.arange(self._lastf, device=self.device).to(dtype))
-        return full(N0), self._block(full(N1), 0), k2
+        return full(N0), full(N1)[self.local_spectral_slices()[1]], k2
 
     def get_local_wavenumbermesh(self) -> torch.Tensor:
         """(3,) + complex_shape() integer wavenumbers (this rank's)."""
@@ -197,18 +409,6 @@ class _Slab3D(BaseFFT):
         if dealias == "3/2-rule":
             return self._bwd_padded_kernel(fu)
         return self._bwd_kernel(fu, dealias)
-
-    # -- the plane-0 all-gather ---------------------------------------------------
-
-    def _flipconj_plane(self, qr, qi):
-        """conj(Q(−k0, −k1)) of a planar (…, N0, Np1) plane whose last axis
-        is cut over the group: gather the plane (1/h of the field), flip it,
-        keep this rank's block (the reference's ``_flipconj_plane_dist``)."""
-        if self.P == 1:
-            return p3._flipconj(qr, qi, (-2, -1))
-        gr, gi = self._all_gather((qr.contiguous(), qi.contiguous()), -1)
-        fr, fi = p3._flipconj(gr, gi, (-2, -1))
-        return self._block(fr, -1), self._block(fi, -1)
 
     # -- the 3/2 rule's kernel chain (the reference's
     #    ``_fwd_dist_pallas_padded``/``_bwd_dist_pallas_padded``);
@@ -335,7 +535,7 @@ class _Slab3D(BaseFFT):
                           lambda: self.backward_fn(dealias))(fu)
 
 
-class R2C(_Slab3D):
+class R2C(_PackedDist1D, _Slab3D):
     """Real ↔ complex 3D transform.
 
     Physical space: real (N0, N1, N2), or (M0, M1, M2) under the 3/2 rule.
@@ -377,77 +577,7 @@ class R2C(_Slab3D):
         return (self._padded_kernel_ok() if dealias == "3/2-rule"
                 else self._kernel3d_ok())
 
-    # -- the packed pipeline (the reference's ``_PackedDist1D``) ------------------
-
-    @property
-    def packed_z_perm(self):
-        """lane → k2 map of the packed pair's last axis: always None, the
-        natural 0..h−1 order (the reference's zdif lane order at N2 >= 512
-        does not carry over)."""
-        return None
-
-    def _peer_kernels(self, t) -> bool:
-        """Rows 24/25 carry the x stage: "rdma" at P > 1 on the card."""
-        return self._peers is not None and t.device.type == "cuda"
-
-    def _pair_fwd(self, u):
-        """real (…, Np0, N1, N2) -> packed planar pair (…, N0, Np1, h), all
-        three axes transformed: the packed z r2c and the y c2c, then the
-        transpose and the x c2c — fused in row 24 under "rdma" (the y stage
-        writes straight into this rank's symmetric buffer)."""
-        u = u.contiguous()
-        off = u.ndim - 3
-        yr, yi = p3.rfft_last_packed(u)
-        if self._peers is not None:
-            out = (self._peers.x_planes(yr.shape) if self._peer_kernels(u)
-                   else None)
-            yr, yi = p3.fft_axis_planar(yr, yi, off + 1, out=out)
-            return rdma.fused_transpose_fft_x(yr, yi, self._peers)
-        yr, yi = p3.fft_axis_planar(yr, yi, off + 1)
-        return self._stage(
-            (yr, yi), off + 1, off,
-            lambda t: p3.fft_axis_planar(t[0].contiguous(),
-                                         t[1].contiguous(), off),
-            pipeline_axis=off + 2)
-
-    def _pair_bwd(self, pair):
-        """packed planar pair (…, N0, Np1, h) -> real (…, Np0, N1, N2): the
-        x inverse and the transpose (row 25 under "rdma"), then the y
-        inverse and the packed z c2r.  Takes the pair as one tuple and
-        drops it, so the input is freed once the x stage has run."""
-        yr, yi = pair
-        del pair
-        off = yr.ndim - 3
-        if self._peers is not None:
-            yr, yi = rdma.fused_ifft_x_transpose(yr.contiguous(),
-                                                 yi.contiguous(), self._peers)
-        else:
-            yr, yi = self._stage(
-                (yr, yi), off, off + 1, pipeline_axis=off + 2,
-                pre_fn=lambda t: p3.fft_axis_planar(
-                    t[0].contiguous(), t[1].contiguous(), off, inverse=True))
-        return p3.fused_zy_bwd(yr.contiguous(), yi.contiguous(),
-                               int(self.N[2]))
-
-    def _unpack(self, yr, yi):
-        """packed pair (…, N0, Np1, h) -> complex (…, N0, Np1, h + 1): the
-        plane-0 riders separated over the gathered (k0, k1) plane."""
-        qr, qi = yr[..., 0], yi[..., 0]
-        cr, ci = self._flipconj_plane(qr, qi)
-        p0 = torch.complex(0.5 * (qr + cr), 0.5 * (qi + ci))
-        pny = torch.complex(0.5 * (qi - ci), -0.5 * (qr - cr))
-        body = torch.complex(yr[..., 1:], yi[..., 1:])
-        return torch.cat([p0[..., None], body, pny[..., None]], dim=-1)
-
-    def _purify(self, yr, yi):
-        """Drop the Nyquist rider from packed plane 0 in place (→ X0
-        exactly): ``ops.fft3d.purify_plane0_dus`` over the gathered
-        plane."""
-        qr, qi = yr[..., 0], yi[..., 0]
-        cr, ci = self._flipconj_plane(qr, qi)
-        qr.copy_(0.5 * (qr + cr))
-        qi.copy_(0.5 * (qi + ci))
-        return yr, yi
+    # -- the packed interface's gates (the pipeline: ``_PackedDist1D``) --------------
 
     def _packed_iface_ok(self, dealias) -> bool:
         """The reference's envelope of the packed interface, on the port's
@@ -467,106 +597,19 @@ class R2C(_Slab3D):
                 "(None, '2/3-rule')")
         return self.P == 1
 
-    def _packed_mask_local(self, h):
-        """2/3-rule mask (N0, Np1, h) over the local packed pair (k2 =
-        0..h−1)."""
-        return self._dealias_local()[..., :h]
-
-    def forward_packed_fn(self, dealias=None):
-        """real (…, Np0, N1, N2) -> packed planar pair (…, N0, Np1, N2/2),
-        no complex boundary.  Plane k2 = 0 carries X0 + i·X_Nyquist; with
-        the 2/3 rule the rider is purified away and the pair is the masked
-        spectrum on k2 = 0..h−1.  Leading dims batch."""
-        self._packed_gate_is_serial(dealias)
-        return lambda u: self._fwd_packed(u, dealias)
-
-    def _fwd_packed(self, u, dealias):
-        yr, yi = self._pair_fwd(u)
-        if dealias == "2/3-rule":
-            self._purify(yr, yi)
-            keep = self._packed_mask_local(yr.shape[-1])
-            yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
-        return yr, yi
-
-    def backward_packed_fn(self, dealias=None):
-        """Inverse of ``forward_packed_fn`` (same envelope): a pair (or a
-        (2, …) tensor) -> real (…, Np0, N1, N2)."""
-        self._packed_gate_is_serial(dealias)
-
-        def bwd(pair):
-            yr, yi = pair
-            if dealias == "2/3-rule":
-                keep = self._packed_mask_local(yr.shape[-1])
-                yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
-            return self._pair_bwd((yr, yi))
-        return bwd
-
-    # -- the packed solvers' nonlinear forward ---------------------------------------
-
     def _nl_dist_ok(self, dealias) -> bool:
         """Gate of ``nl_forward_epilogue_fn``: the packed envelope, the 2/3
         rule, and the x-epilogue kernel's N0."""
         return (dealias == "2/3-rule" and self._packed_iface_ok(dealias)
                 and p3.fft_x_epilogue_ok(int(self.N[0])))
 
-    def nl_forward_epilogue_fn(self, mode: str, visc: float, op: str = "cross",
-                               ri=None, dealias="2/3-rule"):
-        """The packed solvers' whole nonlinear forward at any P: the product
-        with the packed z r2c and the y c2c (rows 12/15's kernel, then row
-        1), the transpose (row 23 under "rdma"), the x c2c with the mask,
-        the ``mode`` epilogue and −visc·k²·S on this rank's k1/m1 block
-        (row 14), then the plane-0 purify over the gathered plane.  Returns
-        a function
-
-            (A, B[, C, D][, Tr, Ti], Sr, Si, k0, k1, k2, m0, m1, m2) -> d
-
-        with A/B/C/D this rank's physical 3-stacks (B a (1, …) field for
-        op="mul"), (Sr, Si) the packed state (a 3-stack, a 1-stack for mode
-        "div"), (Tr, Ti) the buoyancy rider (``ri`` set), and the GLOBAL
-        1-D wavenumber/mask vectors (k1/m1 are cut here).  ``d`` is a
-        (2, ns, N0, Np1, h) tensor whose [0]/[1] are the increment's re/im
-        planes."""
-        if not self._nl_dist_ok(dealias):
-            raise ValueError("nl_forward_epilogue_fn needs the packed "
-                             "interface's envelope and dealias='2/3-rule'")
-        if op not in ("cross", "cross2", "mul"):
-            raise ValueError(f"op must be 'cross', 'cross2' or 'mul', got "
-                             f"{op!r}")
-        nphys = 4 if op == "cross2" else 2
-
-        def fn(*xs):
-            phys, xs = xs[:nphys], xs[nphys:]
-            buoy = None
-            if ri is not None:
-                buoy, xs = (xs[0], xs[1], ri), xs[2:]
-            sr, si, k0, k1, k2, m0, m1, m2 = xs
-            if op == "mul":
-                fzr, fzi = p3.mul_rfft_zy_packed(*phys)
-            else:
-                fzr, fzi = p3.cross_rfft_zy_packed(*phys)
-            fzr, fzi = self._stage((fzr, fzi), 2, 1, pipeline_axis=3)
-            d = p3.fft_x_epilogue_packed(
-                fzr.contiguous(), fzi.contiguous(), sr, si, k0,
-                self._block(k1, 0), k2, m0, self._block(m1, 0), m2, mode,
-                visc, buoy=buoy)
-            self._purify(d[0], d[1])
-            return d
-        return fn
-
     # -- the kernel path ---------------------------------------------------------
 
     def _fwd_kernel(self, u, dealias):
-        if dealias == "2/3-rule":
-            # mask in the packed planar domain (the packed forward: purify
-            # the Nyquist rider, mask the pair), emit a zero Nyquist column
-            x = torch.complex(*self._fwd_packed(u, dealias))
-            return torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
-        return self._unpack(*self._pair_fwd(u))
+        return self._fwd_packed_complex(u, dealias)
 
     def _bwd_kernel(self, fu, dealias):
-        if dealias == "2/3-rule":
-            fu = self._masked(fu)
-        return self._pair_bwd(p3.pack_spectrum(fu))
+        return self._bwd_packed_complex(fu, dealias)
 
     def _last_fwd_padded(self, u):
         """The z r2c at M2 into Nf columns, the truncation's Nyquist ×2 and
@@ -587,7 +630,8 @@ class R2C(_Slab3D):
         the plane is gathered as a planar pair).  ``x`` is the forward's
         own tensor."""
         q = x[..., -1]
-        fr, fi = self._flipconj_plane(q.real, q.imag)
+        fr, fi = self._flipconj_plane(q.real, q.imag, None,
+                                      (self.P, self.rank))
         q.copy_(0.5 * (q + torch.complex(fr, fi)))
         return x
 
@@ -618,7 +662,7 @@ class C2C(_Slab3D):
 
     def shard_real(self, u) -> torch.Tensor:
         """This rank's block of a global (complex) physical-space array."""
-        return device_put(self._block(u, -3), self.complex, self.device)
+        return device_put(self._cut(u, "real"), self.complex, self.device)
 
     def _kernel_ok(self, dealias) -> bool:
         """float32 and every axis of the transformed grid (M under the 3/2

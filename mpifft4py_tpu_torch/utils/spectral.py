@@ -108,40 +108,41 @@ def dealias_cutoffs(N: Sequence[int]) -> np.ndarray:
 
 # ---- factored 1-D wavenumbers of the solvers' spectral layouts ---------------
 #
-# The r2c layout's last axis holds k2 = 0..N2/2 (n2 = N2/2+1 columns); the
-# packed layout's holds k2 = 0..N2/2−1 (n2 = N2/2, no Nyquist column: the
+# The r2c layout's last axis holds k2 = 0..N2/2 (n2 = N2/2+1 columns; the
+# pencil's n2 = Nfp, the lanes >= N2/2+1 structural zeros); the packed
+# layout's holds k2 = 0..N2/2−1 (n2 = N2/2, no Nyquist column: the
 # z-Nyquist rides the plane-0 column and a purified pair holds none).
+# ``slices`` is a transform's ``local_spectral_slices(layout)``: this
+# rank's block of each axis (the whole axes when None).
 
-def _rank_block(k, rank: int, P: int):
-    """Block ``rank`` of P of a 1-D array (the slab cuts spectral k1)."""
-    n = len(k) // P
-    return k[rank * n:(rank + 1) * n]
+def _blocks(ks, slices):
+    slices = slices or (slice(None),) * 3
+    return tuple(torch.from_numpy(np.ascontiguousarray(k[s]))
+                 for k, s in zip(ks, slices))
 
 
 def factored_wavenumbers(N, L, n2: int, dtype=torch.float32, device="cpu",
-                         rank: int = 0, P: int = 1):
+                         slices=None):
     """1-D wavenumbers (k0, k1, k2) on ``device``: k0, k1 in fft layout,
     k2 = 0..n2−1, each scaled by 2π/L in ``dtype`` (``L=None``: the integer
-    wavenumbers); k1 is block ``rank`` of P (the slab's spectral cut).  A
-    float64 k against a complex64 state would promote the state to
-    complex128, so the dtype follows the solver's precision."""
+    wavenumbers), each cut to ``slices``.  A float64 k against a complex64
+    state would promote the state to complex128, so the dtype follows the
+    solver's precision."""
     ft = np.float32 if dtype == torch.float32 else np.float64
     s = (np.ones(3) if L is None else 2 * np.pi / np.asarray(L)).astype(ft)
     ks = (wavenumbers_full(int(N[0]), ft) * s[0],
-          _rank_block(wavenumbers_full(int(N[1]), ft) * s[1], rank, P),
+          wavenumbers_full(int(N[1]), ft) * s[1],
           wavenumbers_half(int(n2), ft) * s[2])
-    return tuple(torch.from_numpy(np.ascontiguousarray(k)).to(device)
-                 for k in ks)
+    return tuple(k.to(device) for k in _blocks(ks, slices))
 
 
-def packed_dealias_masks(N, device="cpu", rank: int = 0, P: int = 1):
-    """1-D 2/3-rule masks (m0, m1, m2) of the packed layout, bool; m1 is
-    block ``rank`` of P."""
-    ks = (wavenumbers_full(int(N[0])),
-          _rank_block(wavenumbers_full(int(N[1])), rank, P),
+def packed_dealias_masks(N, device="cpu", slices=None):
+    """1-D 2/3-rule masks (m0, m1, m2) of the packed layout, bool, each
+    cut to ``slices``."""
+    ks = (wavenumbers_full(int(N[0])), wavenumbers_full(int(N[1])),
           wavenumbers_half(int(N[2]) // 2))
-    return tuple(torch.from_numpy(np.abs(k) < c).to(device)
-                 for k, c in zip(ks, dealias_cutoffs(N)))
+    ms = [np.abs(k) < c for k, c in zip(ks, dealias_cutoffs(N))]
+    return tuple(m.to(device) for m in _blocks(ms, slices))
 
 
 def packed_hermitian_weights(N, device="cpu") -> torch.Tensor:

@@ -48,8 +48,8 @@ def state_from_reference(U_hat_np, FFT) -> torch.Tensor:
     FFT.global_complex_shape()`` array of FFT's complex dtype (a 2D FFT's
     state, NS2D's ω̂, has no component axis: ``FFT.global_complex_shape()``
     itself), as the port's tensor on ``FFT.device``: this rank's block
-    (k1 block ``FFT.rank`` of ``FFT.P``), so each rank of a group takes its
-    part of the reference's state."""
+    (the slab's k1 block; the pencil's k1 and k2 blocks, within Nfp), so
+    each rank of a group takes its part of the reference's state."""
     U = np.asarray(U_hat_np)
     want = tuple(FFT.global_complex_shape())
     lead = (U.shape[0],) if len(want) == 3 and U.ndim == 4 else ()
@@ -58,7 +58,7 @@ def state_from_reference(U_hat_np, FFT) -> torch.Tensor:
                          f"{'(C,) + ' if len(want) == 3 else ''}{want}")
     if _NP_TO_TORCH.get(U.dtype) != FFT.complex:
         raise TypeError(f"state dtype {U.dtype} does not match {FFT.complex}")
-    return device_put(FFT._block(U, -2), FFT.complex, FFT.device)
+    return device_put(FFT._cut(U, "complex"), FFT.complex, FFT.device)
 
 
 def packed_state_from_reference(pair, FFT) -> torch.Tensor:
@@ -69,7 +69,8 @@ def packed_state_from_reference(pair, FFT) -> torch.Tensor:
     by the caller with ``zdif_iperm``).  For a 2D FFT (NS2D's packed
     layout) the pair is (N0, N1/2) each and the tensor (2, N0, N1/2), in
     the lane order both packages' NS2D keep (zdif order at N1 ∈ {512, 768,
-    1024}).  At P > 1 the tensor is this rank's k1 block."""
+    1024}).  At P > 1 the tensor is this rank's k1 block (over P1 for the
+    pencil at P2 == 1, over P1·P2 in its WIDE layout)."""
     ur, ui = (np.asarray(a) for a in pair)
     N = [int(n) for n in FFT.N]
     want = tuple(N[:-1]) + (N[-1] // 2,)
@@ -81,5 +82,5 @@ def packed_state_from_reference(pair, FFT) -> torch.Tensor:
     if ur.dtype != np.float32 or ui.dtype != np.float32:
         raise TypeError(f"packed pair dtypes {ur.dtype}, {ui.dtype}: float32 "
                         f"expected")
-    return device_put(FFT._block(np.stack([ur, ui]), -2), torch.float32,
+    return device_put(FFT._cut(np.stack([ur, ui]), "packed"), torch.float32,
                       FFT.device)

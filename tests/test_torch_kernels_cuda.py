@@ -579,3 +579,83 @@ def test_rdma_raises_without_ipc(cuda, monkeypatch, tmp_path):
             rdma.rdma_all_to_all((y, y), peers, 1, 0)
     finally:
         dist.destroy_process_group()
+
+
+# -- rows 26-27: the pencil's P2 transpose with the y c2c -----------------------
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("C,n0,n1,w2", [(1, 128, 256, 65), (3, 8, 256, 33),
+                                        (1, 4, 40, 5), (2, 6, 640, 7)])
+def test_peer_fft_y_kernels_match_twins(cuda, P, C, n0, n1, w2):
+    W, n1loc = P * w2, n1 // P
+    pull = rdma.SymmetricBuffer.local(P, (2, C, n0, n1loc, W), cuda)
+    for r, t in enumerate(pull.tensors):
+        t.copy_(_f32(t.shape, cuda, 70 + r))
+    before = rdma.LAUNCHES["peer_fft_y"]
+    for my in range(P):
+        got = rdma.fft_y_pull(pull, my)
+        _close((got[0], got[1]), tuple(rdma.fft_y_pull_ref(pull, my)))
+    assert rdma.LAUNCHES["peer_fft_y"] == before + P
+    xs = [(_f32((C, n0, n1, w2), cuda, 80 + r),
+           _f32((C, n0, n1, w2), cuda, 90 + r)) for r in range(P)]
+    got = rdma.SymmetricBuffer.local(P, (2, C, n0, n1loc, W), cuda)
+    want = rdma.SymmetricBuffer.local(P, (2, C, n0, n1loc, W), cuda)
+    before = rdma.LAUNCHES["peer_ifft_y"]
+    for my, (xr, xi) in enumerate(xs):
+        rdma.ifft_y_push(xr, xi, got, my)
+        rdma.ifft_y_push_ref(xr, xi, want, my)
+    assert rdma.LAUNCHES["peer_ifft_y"] == before + P
+    for g, w in zip(got.tensors, want.tensors):
+        _close((g[0], g[1]), (w[0], w[1]))
+
+
+def test_peer_fft_y_round_trip_and_out(cuda):
+    """Row 26 into a given pair (the x stage's buffer), then row 27 back."""
+    P, C, n0, n1, w2 = 2, 1, 16, 256, 65
+    buf = rdma.SymmetricBuffer.local(P, (2, C, n0, n1 // P, P * w2), cuda)
+    orig = [_f32(t.shape, cuda, 100 + r) for r, t in enumerate(buf.tensors)]
+    for t, o in zip(buf.tensors, orig):
+        t.copy_(o)
+    spec = []
+    for my in range(P):
+        out = torch.empty((2, C, n0, n1, w2), device=cuda)
+        got = rdma.fft_y_pull(buf, my, out=(out[0], out[1]))
+        assert got[0].data_ptr() == out[0].data_ptr()
+        spec.append(out)
+    torch.cuda.synchronize()
+    for my, s in enumerate(spec):
+        rdma.ifft_y_push(s[0], s[1], buf, my)
+    _close(tuple(buf.tensors), tuple(orig))
+
+
+@pytest.mark.parametrize("n,nf,width", [(256, 129, 130), (256, 129, 132),
+                                        (384, 129, 130), (32, 17, 20)])
+def test_planar_rfft_pitch_matches_twin(cuda, n, nf, width):
+    """Row 8 into ``width`` >= nf columns (zeros beyond nf: the pencil's
+    alignment lanes) and row 9 back from the first nf of them."""
+    x = _f32((3, 8, n), cuda, 7)
+    scale = 1 / 1.5 ** 3 if n == 384 else 1.0
+    got = p3.rfft_last_planar(x, nf, scale, width=width)
+    _close(got, p3.rfft_last_planar_ref(x, nf, scale, width))
+    assert float(got[0][..., nf:].abs().max()) == 0.0
+    yr, yi = got[0] + 1.0, got[1] - 1.0       # garbage in the pad lanes
+    yr[..., nf:], yi[..., nf:] = 7.0, 7.0
+    back = p3.irfft_last_planar(yr, yi, n, nf_in=nf)
+    _close(back, p3.irfft_last_planar_ref(yr[..., :nf].contiguous(),
+                                          yi[..., :nf].contiguous(), n, nf))
+
+
+def test_pencil_p1_on_the_card_matches_float64(cuda):
+    """A 1×1 pencil on the card (the planar path: rows 8-9 and 1) against
+    float64 torch.fft, the round trip, and its 3/2 forward against the
+    slab's."""
+    from mpifft4py_tpu_torch import pencil
+    N, L = np.array([64, 48, 80]), np.array([2 * np.pi] * 3)
+    F = pencil.R2C(N, L, None, "single", device=cuda)
+    u = _f32(tuple(N), cuda, 3)
+    fu = F.fftn(u)
+    _close(fu, torch.fft.rfftn(u.double()).to(fu.dtype))
+    _close(F.ifftn(fu), u)
+    u3 = _f32((96, 72, 120), cuda, 4)
+    S = R2C(N, L, None, "single", device=cuda)
+    _close(F.fftn(u3, dealias="3/2-rule"), S.fftn(u3, dealias="3/2-rule"))

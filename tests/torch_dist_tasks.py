@@ -170,7 +170,7 @@ def nl_epilogue(shape, communication, phys, Sr, Si, mode, op, visc):
     kv = spectral.factored_wavenumbers(N, FFT.L, int(N[2]) // 2)
     mv = spectral.packed_dealias_masks(N)
     fn = FFT.nl_forward_epilogue_fn(mode, visc, op=op)
-    sr, si = (torch.from_numpy(np.ascontiguousarray(FFT._block(a, -2)))
+    sr, si = (torch.from_numpy(np.ascontiguousarray(FFT._cut(a, "packed")))
               for a in (Sr, Si))
     d = fn(*(FFT.shard_real(a) for a in phys), sr, si, *kv, *mv)
     return FFT.gather(d[0]), FFT.gather(d[1])
@@ -240,3 +240,138 @@ def family_and_line_raise(shape):
 
 def store_path(tmpdir, name):
     return os.path.join(str(tmpdir), name)
+
+
+# -- the pencil (P1×P2 grids of the pool's ranks) -------------------------------
+
+def _pencil(kind, shape, precision, communication, P1, alignment="X",
+            device="cpu"):
+    from mpifft4py_tpu_torch import pencil
+    cls = pencil.R2C if kind == "R2C" else pencil.C2C
+    return cls(np.array(shape), np.array([TAU] * 3), None, precision, P1=P1,
+               alignment=alignment, communication=communication,
+               device=device)
+
+
+def pencil_transform(kind, shape, precision, communication, P1, alignment,
+                     dealias, u):
+    """Gathered forward and round trip of the global field ``u`` on a
+    P1×P2 pencil, and this rank's coordinates, local slices and shapes."""
+    F = _pencil(kind, shape, precision, communication, P1, alignment)
+    fu = F.fftn(F.shard_real(u), dealias=dealias)
+    ub = F.ifftn(fu, dealias=dealias)
+    rc = (F.r1, F.r2)
+    return (F.gather(fu), F.gather(ub), F.real_local_slice(rc),
+            F.complex_local_slice(rc), F.real_shape(), F.complex_shape(),
+            tuple(fu.shape), tuple(ub.shape))
+
+
+def pencil_meshes(shape, P1, alignment):
+    """The gathered wavenumber mesh, scaled mesh, dealias filter and
+    physical mesh of an R2C pencil."""
+    F = _pencil("R2C", shape, "single", "alltoall", P1, alignment)
+    K = F.get_local_wavenumbermesh()
+    return (F.gather(K), F.gather(F.get_scaled_local_wavenumbermesh()),
+            F.gather(F.get_dealias_filter().to(torch.int8)),
+            F.gather(F.get_local_mesh()))
+
+
+def pencil_expect_raise(kind, shape, precision, communication, P1,
+                        alignment, dealias, u):
+    """The exception type name and message a pencil transform raises."""
+    try:
+        pencil_transform(kind, shape, precision, communication, P1,
+                         alignment, dealias, u)
+    except Exception as err:        # the test asserts what was raised
+        return type(err).__name__, str(err)
+    return None, None
+
+
+def pencil_packed(shape, communication, P1, dealias, U):
+    """The pencil's packed interface of a 3-stack: the gathered pair and
+    the gathered round trip."""
+    F = _pencil("R2C", shape, "single", communication, P1)
+    yr, yi = F.forward_packed_fn(dealias)(F.shard_real(U))
+    back = F.backward_packed_fn(dealias)((yr, yi))
+    return F.gather(yr), F.gather(yi), F.gather(back)
+
+
+def pencil_nl_epilogue(shape, communication, P1, phys, Sr, Si, mode, op,
+                       visc):
+    """The pencil's nl_forward_epilogue_fn on the ranks' blocks of global
+    fields, with the global 1-D wavenumbers and masks."""
+    from mpifft4py_tpu_torch.utils import spectral
+    F = _pencil("R2C", shape, "single", communication, P1)
+    N = F.N
+    kv = spectral.factored_wavenumbers(N, F.L, int(N[2]) // 2)
+    mv = spectral.packed_dealias_masks(N)
+    fn = F.nl_forward_epilogue_fn(mode, visc, op=op)
+    sr, si = (torch.from_numpy(np.ascontiguousarray(F._cut(a, "packed")))
+              for a in (Sr, Si))
+    d = fn(*(F.shard_real(a) for a in phys), sr, si, *kv, *mv)
+    return F.gather(d[0]), F.gather(d[1])
+
+
+def pencil_ns3d_steps(shape, layout, communication, P1, state, n_steps, nu,
+                      dt):
+    """``n_steps`` RK4 steps of NavierStokes3D on a pencil from the global
+    ``state`` (complex (3, N0, N1, Nfp), or a packed (2, 3, N0, N1, h)
+    float32 array): the gathered final state, the solver's energy, its
+    Parseval monitor, the energy spectrum and the dissipation."""
+    from mpifft4py_tpu_torch.models import NavierStokes3D
+    from mpifft4py_tpu_torch.models.diagnostics import (
+        dissipation, dissipation_packed, energy_spectrum,
+        energy_spectrum_packed)
+    from mpifft4py_tpu_torch.utils.transfer import (
+        packed_state_from_reference, state_from_reference)
+    F = _pencil("R2C", shape, "single", communication, P1)
+    s = NavierStokes3D(F, nu, dt, spectral_layout=layout)
+    S = (packed_state_from_reference((state[0], state[1]), F)
+         if layout == "packed" else state_from_reference(state, F))
+    S, trace = s.run(S, n_steps, monitor_every=n_steps)
+    diag = ((energy_spectrum_packed(F, S), dissipation_packed(F, S, nu))
+            if layout == "packed" else
+            (energy_spectrum(F, S), dissipation(F, S, nu)))
+    return F.gather(S), s.energy(S), float(trace[-1]), *diag
+
+
+def _grid_case(case):
+    """The pencil comm of a grid case: P1 over the default group,
+    "hybrid" (the one-host slice of ``runtime.hybrid_mesh((2, 2), …)``),
+    "permuted" (the 4 ranks reversed as a 2×2 array), or "hosts2x1"/
+    "hosts1x2" (two given hosts, "b a b a" and "a a b b": the slice of
+    ``hybrid_mesh((2, 1)`` or ``(1, 2), …, hosts=…)`` that holds this rank,
+    so each host builds its own grid at the same time)."""
+    from mpifft4py_tpu_torch.parallel import runtime
+    if case == "hybrid":
+        return runtime.hybrid_mesh((2, 2), ("p1", "p2"))[0], None
+    if case == "permuted":
+        return np.arange(4)[::-1].reshape(2, 2), None
+    if case in ("hosts2x1", "hosts1x2"):
+        ici, hosts = (((2, 1), "baba") if case == "hosts2x1"
+                      else ((1, 2), "aabb"))
+        mesh = runtime.hybrid_mesh(ici, ("p1", "p2"), hosts=list(hosts))
+        return next(m for m in mesh if dist.get_rank() in m), None
+    return None, case
+
+
+def pencil_groups_layout(case):
+    """This rank's (P1, P2, r1, r2) and the global ranks, in group order,
+    of its column group, its row group and the grid's group."""
+    from mpifft4py_tpu_torch.parallel.mesh import pencil_comm
+    group, g1, g2, p1, p2, r1, r2 = pencil_comm(*_grid_case(case))
+    ranks = [None if g is None else
+             [dist.get_global_rank(g, i) for i in range(dist.get_world_size(g))]
+             for g in (g1, g2, group)]
+    return p1, p2, r1, r2, ranks
+
+
+def pencil_on_grid(case, shape, communication, u):
+    """The gathered forward and round trip of ``u`` on an R2C pencil whose
+    comm is a ``_grid_case``, and the grid's ranks."""
+    from mpifft4py_tpu_torch import pencil
+    comm, P1 = _grid_case(case)
+    F = pencil.R2C(np.array(shape), np.array([TAU] * 3), comm, "single",
+                   P1=P1, communication=communication, device="cpu")
+    fu = F.fftn(F.shard_real(u))
+    return F.gather(fu), F.gather(F.ifftn(fu)), (F.P1, F.P2)
