@@ -11,7 +11,11 @@ Phases, each checked; any failed check makes the exit code non-zero:
    at the shapes of the 256³ and 512³ transforms, of the 256³ packed
    NS3D step and of the 256³ 3/2-rule and C2C transforms (C2C's 3/2 rule
    at 384³ on every axis), the cross kernel also at a 512-class plane
-   (relative 1e-5), with each kernel's time beside its twin's;
+   (relative 1e-5), with each kernel's time beside its twin's; rows 10
+   and 20 (``fft_last.cu``) also on views one row (n = 129) or one value
+   into a larger buffer (bases off the bulk copies' 16-byte grid) and on
+   201 rows (fewer tiles than the persistent grid has blocks), each also
+   in a round trip (1e-6), and row 20 at n = 1021 and 2·509;
 3. transforms: ``slab.R2C`` at 256³ and 512³ against float64
    ``torch.fft.rfftn``, the round trip, the 2/3-rule forward, and the
    round-trip time beside ``torch.fft``'s;
@@ -89,7 +93,8 @@ Phase 3 also runs the 3/2-rule transforms at 256³ (the padded round trip,
 the forward of a product field against a float64 alias-sum oracle) and
 ``slab.C2C`` (forward against float64 ``torch.fft.fftn``, round trip, and
 the 3/2-rule round trip and forward, the latter against float64 ``fftn``
-on the 384³ grid truncated to 256³).
+on the 384³ grid truncated to 256³, and the 3/2-rule round trip's time;
+its 384-point ``fft_last`` launches are the ``fft_last_384`` entry's).
 Phases 3–13 are the main path: each runs with the kernels' launch counters
 set to 0 just before it and read just after, and phases 4–8 also read them
 around each of their steps.  Phase 2 also holds each template variant of
@@ -157,6 +162,9 @@ KERNELS = {
     "planar_rfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:439 (row 8)"),
     "planar_irfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:477 (row 9)"),
     "fft_last": (f"{CSRC}/fft_last.cu", f"{PALLAS}:531 (row 10)"),
+    # row 10 at the 3/2-rule C2C's 384-point rows (launches: that path's)
+    "fft_last_384": (f"{CSRC}/fft_last.cu",
+                     f"{PALLAS}:531 (row 10, n = 384 with scale)"),
     "packed_rfft_last_zdif": (f"{CSRC}/packed_rfft.cu",
                               "mpifft4py_tpu/ops/pallas_zdif.py:387 (row 17)"),
     "packed_irfft_last_zdif": (f"{CSRC}/packed_rfft.cu",
@@ -446,6 +454,44 @@ def kernel_phase(torch, p3, zd, dn, rng):
                     p3.fft_axis_planar(ar, ai, axis, inv),
                     p3.fft_axis_planar_ref(ar, ai, axis, inv))
     del ar, ai
+    # the persistent fft_last kernel's edges (rows 10 and 20): views whose
+    # base is not 16-byte aligned (one row into a larger buffer at n = 129,
+    # one value in at both n: every tile's head and tail then come by
+    # ordinary loads), 201 rows (not a multiple of a tile's rows, and fewer
+    # tiles than the persistent grid has blocks), each against its twin
+    # and in a round trip through the kernel (1e-6); the dense tier at n =
+    # 1021 and 2·509 (pair-sum stages above 127, compensated)
+    for n in (129, 256):
+        for rows, off, what in ((4096, n, "one row in"),
+                                (4096, 1, "one value in"),
+                                (201, 0, "201 rows"),
+                                (201, 1, "201 rows, one value in")):
+            br, bi = cu((rows * n + off,)), cu((rows * n + off,))
+            xr, xi = br[off:].view(rows, n), bi[off:].view(rows, n)
+            xc = torch.complex(br, bi)[off:].view(rows, n)
+            for inv in (False, True):
+                y = p3.fft_last_planar_c2c(xr, xi, inv)
+                compare("fft_last", f"({rows}, {n}) {what} inverse={inv}",
+                        y, p3.fft_last_planar_c2c_ref(xr, xi, inv))
+                compare("fft_last", f"({rows}, {n}) {what} inverse={inv} "
+                                    f"round trip",
+                        p3.fft_last_planar_c2c(*y, not inv), (xr, xi), 1e-6)
+                y = dn.fft_axis(xc, 1, inv)
+                compare("dense_fft_last", f"({rows}, {n}) {what} "
+                                          f"inverse={inv}",
+                        y, dn.fft_axis_ref(xc, 1, inv))
+                compare("dense_fft_last", f"({rows}, {n}) {what} "
+                                          f"inverse={inv} round trip",
+                        dn.fft_axis(y, 1, not inv), xc, 1e-6)
+    for n in (1021, 2 * 509):
+        xc = torch.complex(cu((64, n)), cu((64, n)))
+        for inv in (False, True):
+            y = dn.fft_axis(xc, 1, inv)
+            compare("dense_fft_last", f"(64, {n}) inverse={inv}", y,
+                    dn.fft_axis_ref(xc, 1, inv))
+            compare("dense_fft_last", f"(64, {n}) inverse={inv} round trip",
+                    dn.fft_axis(y, 1, not inv), xc, 1e-6)
+    del br, bi, xr, xi, xc, y
 
     # rows 17-18, the DIF lane order of the packed 2D layout, at 1e-6: the
     # whole 1024^2 field (1024 rows of n) and the (4, 1024, n/2) stack of
@@ -504,6 +550,8 @@ def kernel_phase(torch, p3, zd, dn, rng):
     z, zc = torch.complex(xr, xi), torch.complex(cr, ci)
     zh = torch.complex(cu((256, 256, 129)), cu((256, 256, 129)))
     ph = torch.complex(pr, pi)
+    ar, ai = cu((384, 384, 384)), cu((384, 384, 384))
+    a384 = torch.complex(ar, ai)
     n3, pk3 = 256 ** 3, 3 * 256 * 256 * 128
     cases = {
         "curl_ifft_x": (lambda: p3.curl_ifft_x(ur, ui, *km[:3], True),
@@ -560,6 +608,12 @@ def kernel_phase(torch, p3, zd, dn, rng):
                      lambda: p3.fft_last_planar_c2c_ref(cr, ci),
                      lambda: torch.fft.fft(zc, dim=-1), 4 * nbytes(cr),
                      fft_flops(cr.numel(), 256)),
+        # the 3/2-rule C2C's z stage: 384-point rows with the scale
+        "fft_last_384": (lambda: p3.fft_last_planar_c2c(ar, ai, False, 1 / P3),
+                         lambda: p3.fft_last_planar_c2c_ref(ar, ai, False,
+                                                            1 / P3),
+                         lambda: torch.fft.fft(a384, dim=-1), 4 * nbytes(ar),
+                         fft_flops(ar.numel(), 384)),
         # NS2D 1024^2: the forward on the field, the inverse on the stack
         "packed_rfft_last_zdif": (
             lambda: zd.rfft_last_zdif(f2), lambda: zd.rfft_last_zdif_ref(f2),
@@ -968,6 +1022,7 @@ def padded_transform_phase(torch, p3, R2C, C2C, rng):
     err = rel_err(torch, C.ifftn(fu), u)
     check(err < 1e-6, f"C2C 256^3 ifftn(fftn(u)) round trip: rel err "
                       f"{err:.3e}")
+    at384 = p3.LAUNCHES["fft_last"]
     err = rel_err(torch, C.fftn(C.ifftn(fu, dealias="3/2-rule"),
                                 dealias="3/2-rule"), fu)
     check(err < 1e-6, f"C2C 256^3 3/2-rule round trip: rel err {err:.3e}")
@@ -977,6 +1032,7 @@ def padded_transform_phase(torch, p3, R2C, C2C, rng):
     ref = fold_full_axes(torch, torch.fft.fftn(w.to(torch.complex128))
                          / C.padsize ** 3, N, (0, 1, 2))
     err = rel_err(torch, C.fftn(w, dealias="3/2-rule"), ref)
+    at384 = p3.LAUNCHES["fft_last"] - at384
     check(err <= 1e-5, f"C2C 256^3 3/2-rule forward of a random 384^3 field "
                        f"vs float64 fftn, truncated: rel err {err:.3e}")
     del w, ref
@@ -990,6 +1046,18 @@ def padded_transform_phase(torch, p3, R2C, C2C, rng):
     print(f"time C2C 256^3 round trip backward_fn()(forward_fn()(u)): "
           f"{k1:.4f} / {k2:.4f} ms; torch.fft ifftn(fftn(u)) complex64: "
           f"{t1:.4f} / {t2:.4f} ms", flush=True)
+    fwd, bwd = C.forward_fn("3/2-rule"), C.backward_fn("3/2-rule")
+    k1 = median_ms(torch, lambda: fwd(bwd(fu)), iters=20)
+    t1 = median_ms(torch, lambda: torch.fft.fftn(torch.fft.ifftn(
+        fu, s=(384,) * 3)), iters=20)
+    t2 = median_ms(torch, lambda: torch.fft.fftn(torch.fft.ifftn(
+        fu, s=(384,) * 3)), iters=20)
+    k2 = median_ms(torch, lambda: fwd(bwd(fu)), iters=20)
+    print(f"time C2C 256^3 3/2-rule round trip forward_fn(backward_fn(fu)): "
+          f"{k1:.4f} / {k2:.4f} ms; torch.fft fftn(ifftn(fu, s=384^3)) "
+          f"complex64 (the same FFT sizes, no pad or truncation): "
+          f"{t1:.4f} / {t2:.4f} ms", flush=True)
+    return at384
 
 
 def make_solver(R2C, NavierStokes3D, precision, layout="complex",
@@ -1949,7 +2017,9 @@ def main():
         return out
 
     path(transform_phase, torch, p3, R2C, rng)
-    path(padded_transform_phase, torch, p3, R2C, C2C, rng)
+    # row 10 at n = 384: the 3/2-rule C2C calls' fft_last launches
+    launches["fft_last_384"] = path(padded_transform_phase, torch, p3, R2C,
+                                    C2C, rng)
     Uc, Ud, ms_c, peak_c = path(solver_phase, torch, p3, R2C, NavierStokes3D)
     steps256, U_packed = path(packed_solver_phase, torch, p3, R2C,
                               NavierStokes3D, Uc, Ud, ms_c, peak_c)

@@ -16,6 +16,8 @@
 //   over the tile, in registers, before the barrier; so it needs no second
 //   buffer, and its shared memory is the register stages'.  The sum is
 //   compensated (Kahan), so its float32 error does not grow with p.
+//   fft_last.cu runs the pair-sum form instead (stage_pairsum, in
+//   block_fft_fast): ~1/4 of the arithmetic an output.
 // The reference's c2c envelope (supported_c2c: n = r*m, m <= 128 the
 // largest divisor, r <= 8) has prime factors up to 127; the half-length
 // h = n/2 <= 1024 of its r2c envelope (even n <= 2048) up to 1021.
@@ -307,6 +309,307 @@ __device__ inline void block_fft(float2* s, int n, int ncol, int pitch,
     }
     Ns *= R;
   }
+}
+
+// ---- the row kernel's stages (fft_last.cu): the same Stockham plan with
+// cheap index arithmetic and a pair-sum prime stage ----------------------
+//
+// On an H100 the stages above spend most of their instructions on index
+// arithmetic: b % ncol, b / ncol and j % Ns by run-time divisors (~20
+// instructions each), recomputed after the barrier.  The variants below
+// divide by one multiply-high (FastDiv) and keep each butterfly's output
+// offset across the barrier; their arithmetic and order are the stages'.
+
+// x / d for 0 <= x < 2^16 and 1 <= d < 2^16: __umulhi(x, ceil(2^32 / d)) is
+// exact there (d = 1 returns x).
+struct FastDiv {
+  int d;
+  unsigned m;
+  __device__ __forceinline__ explicit FastDiv(int dd)
+      : d(dd), m(dd > 1 ? 0xffffffffu / static_cast<unsigned>(dd) + 1u : 0u) {}
+  __device__ __forceinline__ int div(int x) const {
+    return d > 1 ? static_cast<int>(__umulhi(static_cast<unsigned>(x), m))
+                 : x;
+  }
+};
+
+// Radix 2, 3 and 4 issue all of a thread's loads, then all its twiddle
+// loads, before any butterfly, so they are in flight together; radix 5
+// and 7 transform each butterfly as it arrives (held all at once, their
+// values spilled in the mixed instance).  Twiddles: none in the first
+// stage (k = 0 throughout); where k = 0 later, tw[0] = 1 exactly.
+template <int R>
+constexpr bool kBatch = R <= 4;
+
+template <int R, int kE>
+__device__ __forceinline__ void stage_fast(float2* s, int n,
+                                           const FastDiv& ncol, int pitch,
+                                           int Ns,
+                                           const float2* __restrict__ tw,
+                                           float sign) {
+  constexpr int kMaxB = (kE + R - 1) / R;
+  const int stride = n / R;
+  const int nb = stride * ncol.d;
+  const int twstep = n / (Ns * R);
+  const FastDiv ns(Ns);
+  float2 v[kMaxB][R];
+  int in[kMaxB], k[kMaxB], out[kMaxB];
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    const int b = threadIdx.x + i * blockDim.x;
+    const int j = ncol.div(b);
+    const int c = b - j * ncol.d;
+    const int jq = ns.div(j);
+    k[i] = j - jq * Ns;
+    in[i] = j * pitch + c;
+    out[i] = b < nb ? (jq * Ns * R + k[i]) * pitch + c : -1;
+    if (b < nb) {
+#pragma unroll
+      for (int t = 0; t < R; ++t) v[i][t] = s[in[i] + t * stride * pitch];
+      if (!kBatch<R>) {
+        if (Ns > 1) {
+#pragma unroll
+          for (int t = 1; t < R; ++t)
+            v[i][t] = cmul(v[i][t], __ldg(&tw[t * k[i] * twstep]));
+        }
+        dft<R>(v[i], sign);
+      }
+    }
+  }
+  if (kBatch<R>) {
+    if (Ns > 1) {
+#pragma unroll
+      for (int i = 0; i < kMaxB; ++i) {
+        if (out[i] >= 0) {
+#pragma unroll
+          for (int t = 1; t < R; ++t)
+            v[i][t] = cmul(v[i][t], __ldg(&tw[t * k[i] * twstep]));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) dft<R>(v[i], sign);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    if (out[i] >= 0) {
+#pragma unroll
+      for (int t = 0; t < R; ++t) s[out[i] + t * Ns * pitch] = v[i][t];
+    }
+  }
+  __syncthreads();
+}
+
+// Output items a thread holds in registers in a pair-sum stage: a p-point
+// stage has (p + 1)/2 items a butterfly (y_0 and the pairs (q, p - q)), at
+// most 6/11 of the tile's n * ncol values for p >= 11, so kE values a
+// thread give at most pair_items(kE) items.
+__host__ __device__ constexpr int pair_items(int kE) {
+  return (kE * 6 + 10) / 11;
+}
+// Pair-sum stages with p above this compensate a_q and b_q (Kahan): the
+// c2c envelope's primes (<= 127) hold the round trip to 1e-6 without it; at
+// p = 1021 (the dense tier's lengths) a float32 model of the uncompensated
+// sums came to 8e-7 (tests/test_torch_prime_stage.py).
+constexpr int kPairSumExact = 127;
+
+// A p-point stage (odd p >= 11) in Stockham order from the symmetric pairs,
+// dft_odd's form over the tile, in place of stage_direct:
+// - pass 1 multiplies input t of butterfly j (k = j mod Ns) by the
+//   inter-stage twiddle tw[t * k * n/(Ns*p)] in place, as stage<R> does;
+// - pass 2: a thread takes item q = 0..(p-1)/2 of butterfly j, column c,
+//   and with x_t = s[j + t*n/p] sums
+//     a_q = x_0 + sum_t cos(2*pi*t*q/p) * (x_t + x_{p-t}),
+//     b_q =       sum_t sin(2*pi*t*q/p) * (x_t - x_{p-t}),  t = 1..(p-1)/2,
+//   reading the cosines and (signed) sines at tw[m * n/p], m = t*q mod p
+//   advanced by addition; y_q = a_q + i*b_q, y_{p-q} = a_q - i*b_q (q = 0
+//   gives y_0 with m = 0).  ~4 FMAs a term an output pair, where
+//   stage_direct spends ~16 flops a term an output.
+template <bool kKahan, int kE>
+__device__ inline void stage_pairsum(float2* s, int n, const FastDiv& ncol,
+                                     int pitch, int Ns, int p,
+                                     const float2* __restrict__ tw) {
+  const int stride = n / p;
+  const FastDiv fs(stride);
+  if (Ns > 1) {
+    const FastDiv ns(Ns);
+    const int twstep = n / (Ns * p);
+    const int elems = n * ncol.d;
+    for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+      const int r = ncol.div(e);
+      const int t = fs.div(r);
+      const int j = r - t * stride;
+      const int k = j - ns.div(j) * Ns;
+      if (t > 0 && k > 0) {
+        float2* a = &s[r * pitch + e - r * ncol.d];
+        *a = cmul(*a, __ldg(&tw[t * k * twstep]));
+      }
+    }
+    __syncthreads();
+  }
+  const int H = (p - 1) / 2;
+  const int items = (H + 1) * stride * ncol.d;
+  const int tstep = stride * pitch;
+  constexpr int kItems = pair_items(kE);
+  float2 y0[kItems], y1[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int e = threadIdx.x + i * blockDim.x;
+    if (e < items) {
+      const int r = ncol.div(e);
+      const int q = fs.div(r);
+      const float2* lo = s + (r - q * stride) * pitch + e - r * ncol.d;
+      const float2* hi = lo + (p - 1) * tstep;
+      float2 a = *lo;
+      float2 b = make_float2(0.f, 0.f);
+      float2 ca = b, cb = b;
+      int m = 0;
+      for (int t = 1; t <= H; ++t) {
+        lo += tstep;
+        m += q;
+        if (m >= p) m -= p;
+        const float2 xp = *lo, xm = *hi;
+        hi -= tstep;
+        const float2 w = __ldg(&tw[m * stride]);
+        const float2 sp = cadd(xp, xm), dm = csub(xp, xm);
+        if (kKahan) {
+          kahan_add(a.x, ca.x, w.x * sp.x);
+          kahan_add(a.y, ca.y, w.x * sp.y);
+          kahan_add(b.x, cb.x, w.y * dm.x);
+          kahan_add(b.y, cb.y, w.y * dm.y);
+        } else {
+          a = make_float2(fmaf(w.x, sp.x, a.x), fmaf(w.x, sp.y, a.y));
+          b = make_float2(fmaf(w.y, dm.x, b.x), fmaf(w.y, dm.y, b.y));
+        }
+      }
+      y0[i] = make_float2(a.x - b.y, a.y + b.x);
+      y1[i] = make_float2(a.x + b.y, a.y - b.x);
+    }
+  }
+  __syncthreads();
+  const FastDiv ns(Ns);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int e = threadIdx.x + i * blockDim.x;
+    if (e < items) {
+      const int r = ncol.div(e);
+      const int q = fs.div(r);
+      const int j = r - q * stride;
+      const int jq = ns.div(j);
+      const int d = (jq * p * Ns + j - jq * Ns) * pitch + e - r * ncol.d;
+      s[d + q * Ns * pitch] = y0[i];
+      if (q > 0) s[d + (p - q) * Ns * pitch] = y1[i];
+    }
+  }
+  __syncthreads();
+}
+
+// The last stage (Ns * R == n) of a plan whose last radix is a register
+// stage, writing its outputs through out(c, k, y_k) (column c, index k in
+// natural order) instead of back to the tile: threads take j fastest, so
+// the tile reads stride by the odd pitch (no bank conflicts) and
+// neighbouring threads write neighbouring k (coalesced global stores).
+// No barrier: the caller synchronises before the tile is written again.
+template <int R, int kE, typename Out>
+__device__ __forceinline__ void stage_fast_last(const float2* s, int n,
+                                                int ncol, int pitch,
+                                                const float2* __restrict__ tw,
+                                                float sign, Out out) {
+  constexpr int kMaxB = (kE + R - 1) / R;
+  const int Ns = n / R;
+  const FastDiv fs(Ns);
+  float2 v[kMaxB][R];
+  int c[kMaxB], k[kMaxB];
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    const int b = threadIdx.x + i * blockDim.x;
+    c[i] = b < Ns * ncol ? fs.div(b) : -1;
+    k[i] = b - fs.div(b) * Ns;
+    if (c[i] >= 0) {
+#pragma unroll
+      for (int t = 0; t < R; ++t)
+        v[i][t] = s[(k[i] + t * Ns) * pitch + c[i]];
+      if (!kBatch<R>) {
+        if (Ns > 1) {
+#pragma unroll
+          for (int t = 1; t < R; ++t)
+            v[i][t] = cmul(v[i][t], __ldg(&tw[t * k[i]]));
+        }
+        dft<R>(v[i], sign);
+#pragma unroll
+        for (int t = 0; t < R; ++t) out(c[i], k[i] + t * Ns, v[i][t]);
+      }
+    }
+  }
+  if (kBatch<R>) {
+    if (Ns > 1) {
+#pragma unroll
+      for (int i = 0; i < kMaxB; ++i) {
+        if (c[i] >= 0) {
+#pragma unroll
+          for (int t = 1; t < R; ++t)
+            v[i][t] = cmul(v[i][t], __ldg(&tw[t * k[i]]));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) {
+      if (c[i] >= 0) {
+        dft<R>(v[i], sign);
+#pragma unroll
+        for (int t = 0; t < R; ++t) out(c[i], k[i] + t * Ns, v[i][t]);
+      }
+    }
+  }
+}
+
+// block_fft's plan over the tile with the stages above: radix 2, 3 and 4
+// (5 and 7 if kMixed) as stage_fast, each prime factor p >= 11 as
+// stage_pairsum (kMixed only).  ncol.d < 2^16 columns, n * ncol < 2^16;
+// the block has at least n * ncol / kE threads (kE values a thread).  A
+// last register stage writes through `out` (stage_fast_last) and the call
+// returns true; else the spectrum is left in the tile.
+template <bool kMixed, int kE, typename Out>
+__device__ inline bool block_fft_fast(float2* s, int n, const FastDiv& ncol,
+                                      int pitch, const Plan& plan,
+                                      const float2* __restrict__ tw,
+                                      float sign, Out out) {
+  const int last = plan.radix[plan.nst - 1];
+  const bool fused = last <= (kMixed ? 7 : 4);
+  int Ns = 1;
+  for (int st = 0; st < plan.nst - (fused ? 1 : 0); ++st) {
+    const int R = plan.radix[st];
+    if (R == 4) {
+      stage_fast<4, kE>(s, n, ncol, pitch, Ns, tw, sign);
+    } else if (R == 2) {
+      stage_fast<2, kE>(s, n, ncol, pitch, Ns, tw, sign);
+    } else if (!kMixed || R == 3) {
+      stage_fast<3, kE>(s, n, ncol, pitch, Ns, tw, sign);
+    } else if (R == 5) {
+      stage_fast<5, kE>(s, n, ncol, pitch, Ns, tw, sign);
+    } else if (R == 7) {
+      stage_fast<7, kE>(s, n, ncol, pitch, Ns, tw, sign);
+    } else if (R > kPairSumExact) {
+      stage_pairsum<true, kE>(s, n, ncol, pitch, Ns, R, tw);
+    } else {
+      stage_pairsum<false, kE>(s, n, ncol, pitch, Ns, R, tw);
+    }
+    Ns *= R;
+  }
+  if (!fused) return false;
+  if (last == 4) {
+    stage_fast_last<4, kE>(s, n, ncol.d, pitch, tw, sign, out);
+  } else if (last == 2) {
+    stage_fast_last<2, kE>(s, n, ncol.d, pitch, tw, sign, out);
+  } else if (!kMixed || last == 3) {
+    stage_fast_last<3, kE>(s, n, ncol.d, pitch, tw, sign, out);
+  } else if (last == 5) {
+    stage_fast_last<5, kE>(s, n, ncol.d, pitch, tw, sign, out);
+  } else {
+    stage_fast_last<7, kE>(s, n, ncol.d, pitch, tw, sign, out);
+  }
+  return true;
 }
 
 // Sets `kernel`'s dynamic shared memory to smem bytes and launches it with

@@ -278,6 +278,52 @@ def test_fft_last_matches_twin(cuda, shape, inverse):
            p3.fft_last_planar_c2c_ref(xr, xi, inverse, sc))
 
 
+def _view(n, rows, off, device, seed):
+    """(rows, n) float32 that starts `off` values into a larger buffer (a
+    base that is not 16-byte aligned unless off * 4 is a multiple of 16)."""
+    return _f32((rows * n + off,), device, seed)[off:].view(rows, n)
+
+
+def _round_trip(fwd, bwd, xs):
+    back = bwd(*fwd(*xs))
+    torch.cuda.synchronize()
+    back = back if isinstance(back, tuple) else (back,)
+    for b, x in zip(back, xs):
+        assert float((b - x).abs().max()) < 1e-6 * float(x.abs().max())
+
+
+# the persistent kernel's edges (rows 10 and 20): views that start one row
+# (n = 129) or a few values into a larger buffer, so every tile's head and
+# tail miss the 16-byte grid of the bulk copies; row counts that are not a
+# multiple of a tile's rows (28 planar, 30 complex64 at n = 129; 16 at 256;
+# 10 at 384) and leave most of the persistent grid without a tile; n = 384
+# with the 3/2 rule's scale; each against its twin and in a round trip
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,rows,off", [(129, 300, 129), (129, 201, 1),
+                                        (256, 201, 0), (256, 300, 1),
+                                        (384, 7, 3), (384, 1000, 2)])
+def test_fft_last_unaligned_and_ragged(cuda, n, rows, off, inverse):
+    xr, xi = _view(n, rows, off, cuda, 1), _view(n, rows, off, cuda, 2)
+    sc = 1.5 ** 3 if inverse else 1 / 1.5 ** 3
+    before = p3.LAUNCHES["fft_last"]
+    got = p3.fft_last_planar_c2c(xr, xi, inverse, sc)
+    assert p3.LAUNCHES["fft_last"] == before + 1
+    _close(got, p3.fft_last_planar_c2c_ref(xr, xi, inverse, sc))
+    _round_trip(lambda a, b: p3.fft_last_planar_c2c(a, b, inverse, sc),
+                lambda a, b: p3.fft_last_planar_c2c(a, b, not inverse,
+                                                    1 / sc), (xr, xi))
+    from mpifft4py_tpu_torch.ops import dense as dn
+    buf = torch.complex(_f32((rows * n + off,), cuda, 3),
+                        _f32((rows * n + off,), cuda, 4))
+    x = buf[off:].view(rows, n)
+    before = p3.LAUNCHES["dense_fft_last"]
+    _close(torch.view_as_real(dn.fft_axis(x, 1, inverse)),
+           torch.view_as_real(dn.fft_axis_ref(x, 1, inverse)))
+    assert p3.LAUNCHES["dense_fft_last"] == before + 1
+    _round_trip(lambda a: (dn.fft_axis(a, 1, inverse),),
+                lambda a: dn.fft_axis(a, 1, not inverse), (x,))
+
+
 def test_c2c_on_the_card_matches_float64(cuda):
     N = (32, 48, 64)
     C = C2C(np.array(N), np.array([2 * np.pi] * 3), None, "single",
@@ -414,6 +460,33 @@ def test_widened_c2c_plans_match_twin(cuda, n, inverse):
                                           0.01)),
            tuple(p3.fft_x_epilogue_packed_ref(ur, ui, ur, ui, *k, "project",
                                               0.01)))
+
+
+# the pair-sum prime stages of fft_last.cu: p = 11 twice (121), 43 after a
+# radix 3 (129), 127 after radix 2 and 4 (1016), aligned and one value in;
+# the dense tier's complex64 instance also at primes above 127 (131, 2·509,
+# 1021), whose sums are compensated
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("n", [22, 121, 129, 254, 1016])
+def test_pairsum_plans_match_twin(cuda, n, off):
+    xr, xi = _view(n, 21, off, cuda, 1), _view(n, 21, off, cuda, 2)
+    for inverse in (False, True):
+        _close(p3.fft_last_planar_c2c(xr, xi, inverse),
+               p3.fft_last_planar_c2c_ref(xr, xi, inverse))
+        _round_trip(lambda a, b: p3.fft_last_planar_c2c(a, b, inverse),
+                    lambda a, b: p3.fft_last_planar_c2c(a, b, not inverse),
+                    (xr, xi))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [131, 2 * 509, 1021])
+def test_dense_fft_last_large_primes(cuda, n, inverse):
+    from mpifft4py_tpu_torch.ops import dense as dn
+    x = torch.complex(_f32((64, n), cuda, 1), _f32((64, n), cuda, 2))
+    _close(torch.view_as_real(dn.fft_axis(x, 1, inverse)),
+           torch.view_as_real(dn.fft_axis_ref(x, 1, inverse)))
+    _round_trip(lambda a: (dn.fft_axis(a, 1, inverse),),
+                lambda a: dn.fft_axis(a, 1, not inverse), (x,))
 
 
 @pytest.mark.parametrize("n", [1280, 2042])
