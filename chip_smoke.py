@@ -15,7 +15,12 @@ Phases, each checked; any failed check makes the exit code non-zero:
    and 20 (``fft_last.cu``) also on views one row (n = 129) or one value
    into a larger buffer (bases off the bulk copies' 16-byte grid) and on
    201 rows (fewer tiles than the persistent grid has blocks), each also
-   in a round trip (1e-6), and row 20 at n = 1021 and 2·509;
+   in a round trip (1e-6), and row 20 at n = 1021 and 2·509; rows 21 and
+   8 (``planar_rfft.cu``'s persistent r2c) on inputs one value or one row
+   into a buffer, on 201 rows and ragged 3-stacks, truncated to nf = 129
+   on band-limited rows, and into widths 130 and 132 through ``out=`` (a
+   pair that starts inside its buffer), each against its twin and in a
+   round trip through the c2r (1e-6);
 3. transforms: ``slab.R2C`` at 256³ and 512³ against float64
    ``torch.fft.rfftn``, the round trip, the 2/3-rule forward, and the
    round-trip time beside ``torch.fft``'s;
@@ -86,8 +91,9 @@ Phases, each checked; any failed check makes the exit code non-zero:
 Before the main path, the envelope sweep holds the widened plans against
 their twins (1e-5) and in round trips through the kernels (1e-6):
 ``fft_axis`` and ``fft_last`` at every ``supported_c2c`` n in 8..1024, the
-packed r2c/c2r at every even n in 16..2048, and times them at n = 40, 112,
-640, 1016 (c2c) and 2042 (r2c) beside n = 1024 and 2048.
+packed r2c/c2r and the planar and dense r2c (rows 8 and 21; nf whole and
+truncated, widths above nf) at every even n in 16..2048, and times them at
+n = 40, 112, 640, 1016 (c2c) and 2042 (r2c) beside n = 1024 and 2048.
 
 Phase 3 also runs the 3/2-rule transforms at 256³ (the padded round trip,
 the forward of a product field against a float64 alias-sum oracle) and
@@ -234,7 +240,7 @@ NS2D_RHS = {"packed_rfft_last_zdif": 1, "packed_irfft_last_zdif": 1,
 NS2D_RHS_NATURAL = {"packed_rfft_last": 1, "packed_irfft_last": 1,
                     "fft_axis": 2}
 # the widened plans' timed lengths: c2c (radix 5, radix 7, 2^7·5, a direct
-# 127-point stage) and the packed r2c with a direct 1021-point stage
+# 127-point stage) and the r2c with a 1021-point stage
 SWEEP_TIMED_C2C = (40, 112, 640, 1016)
 SWEEP_TIMED_R2C = (2042,)
 WIDE = (320, 320, 1280)       # packed NS3D: radix 5 on x, y and h = 640
@@ -492,6 +498,42 @@ def kernel_phase(torch, p3, zd, dn, rng):
             compare("dense_fft_last", f"(64, {n}) inverse={inv} round trip",
                     dn.fft_axis(y, 1, not inv), xc, 1e-6)
     del br, bi, xr, xi, xc, y
+
+    # the persistent r2c's edges (rows 21 and 8): inputs one value or one
+    # row into a larger buffer, 201 rows and 3-stacks that are not a
+    # multiple of a tile's rows (32 at n = 256, 20 at 384), the 3/2 rule's
+    # truncation (nf = 129, doubled, scaled) of band-limited rows, the
+    # pencil's widths 130 and 132 through out= (a pair that starts inside
+    # its buffer); each against its twin and in a round trip through the c2r
+    for shape, off, nf, width, out_off in (
+            ((4096, 256), 1, None, None, 0), ((4096, 256), 256, None, None, 0),
+            ((201, 256), 0, None, None, 0), ((3, 67, 256), 1, None, None, 0),
+            ((3, 7, 384), 0, 129, None, 0), ((201, 384), 1, 129, None, 0),
+            ((1000, 384), 384, None, None, 0),
+            ((128, 128, 256), 0, 129, 130, 0), ((201, 256), 1, 129, 130, 1),
+            ((3, 67, 256), 3, 129, 132, 2)):
+        n, rows = shape[-1], int(np.prod(shape[:-1]))
+        x = cu((rows * n + off,))[off:].view(shape)
+        if nf is not None:
+            x.copy_(p3.irfft_last_planar_ref(cu(shape[:-1] + (nf,)),
+                                             cu(shape[:-1] + (nf,)), n, nf))
+        sc = 1 / P3 if n == 384 else 1.0
+        out = None if width is None else tuple(
+            torch.zeros(rows * width + out_off, device="cuda")[out_off:]
+            .view(shape[:-1] + (width,)) for _ in "ri")
+        what = (f"{shape} {off} value(s) in, nf={nf}, width={width}"
+                + ("" if out is None else f", out= {out_off} value(s) in"))
+        y = p3.rfft_last_planar(x, nf, sc, width, out)
+        compare("planar_rfft_last", what, y,
+                p3.rfft_last_planar_ref(x, nf, sc, width))
+        compare("planar_rfft_last", what + " round trip",
+                p3.irfft_last_planar(*y, n, nf, 1 / sc), x, 1e-6)
+        if nf is None:
+            X = dn.rfft_last(x)
+            compare("dense_rfft_last", what, X, dn.rfft_last_ref(x))
+            compare("dense_rfft_last", what + " round trip",
+                    dn.irfft_last(X, n), x, 1e-6)
+    del x, y, X, out
 
     # rows 17-18, the DIF lane order of the packed 2D layout, at 1e-6: the
     # whole 1024^2 field (1024 rows of n) and the (4, 1024, n/2) stack of
@@ -822,14 +864,18 @@ def peer_kernel_phase(torch, rdma, rng):
     return res
 
 
-def envelope_phase(torch, p3):
+def envelope_phase(torch, p3, dn):
     """The widened plans against their twins: ``fft_axis`` and
-    ``fft_last`` at every ``supported_c2c`` n in 8..1024, the packed r2c/c2r
-    at every even n in 16..2048, each forward against its twin (1e-5
-    relative, as every kernel) and in a round trip through the kernels
-    (1e-6 relative); the worst of each printed; then times at the lengths
-    of SWEEP_TIMED_* (radix 5, radix 7, a direct 127- and 1021-point stage)
-    beside the powers of two next to them."""
+    ``fft_last`` at every ``supported_c2c`` n in 8..1024; at every even n
+    in 16..2048 the packed r2c/c2r, the planar r2c (rows 8 and 21's
+    kernel) into nf = n/2 + 1 columns of a wider row and truncated to about
+    n/3 + 1 (doubled, scaled), and the dense r2c (row 21); each forward
+    against its twin (1e-5 relative, as every kernel) and, where the
+    spectrum is whole, in a round trip through the kernels (1e-6
+    relative); the worst of each printed; then times at the lengths of
+    SWEEP_TIMED_* (radix 5, radix 7, a 127-point stage; at n = 2042 a
+    1021-point one: direct in the packed r2c, pair-sum in the planar and
+    dense r2c) beside the powers of two next to them."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
     def cu(shape):
@@ -870,10 +916,29 @@ def envelope_phase(torch, p3):
              (p3.irfft_last_packed_ref(*ref, n),), 1e-5, f"irfft n={n}")
         note("packed r2c/c2r round trip", (p3.irfft_last_packed(*y, n),),
              (x,), 1e-6, f"packed n={n} round trip")
+        # rows 8 and 21: the full spectrum into a wider row, a 3/2-rule-like
+        # truncation (doubled, scaled), numpy's rfft as complex64
+        h = n // 2
+        for nf, width, sc in ((h + 1, h + 4, 1.0), (n // 3 + 1, n // 3 + 2,
+                                                    1 / P3)):
+            key = "planar_rfft_last" + (" vs twin" if nf == h + 1 else
+                                        " truncated vs twin")
+            y = p3.rfft_last_planar(x, nf, sc, width)
+            note(key, y, p3.rfft_last_planar_ref(x, nf, sc, width), 1e-5,
+                 f"planar rfft n={n} nf={nf} width={width}")
+            if nf == h + 1:
+                note("planar r2c/c2r round trip",
+                     (p3.irfft_last_planar(*y, n, None, 1 / sc),), (x,),
+                     1e-6, f"planar n={n} round trip")
+        X = dn.rfft_last(x)
+        note("dense_rfft_last vs twin", (X,), (dn.rfft_last_ref(x),), 1e-5,
+             f"dense rfft n={n}")
+        note("dense r2c/c2r round trip", (dn.irfft_last(X, n),), (x,), 1e-6,
+             f"dense n={n} round trip")
     for key, (err, count) in worst.items():
         print(f"sweep {key}: worst rel err {err:.3e} over {count} lengths",
               flush=True)
-    check(len(worst) == 7 and all(c > 500 for _, c in worst.values()),
+    check(len(worst) == 12 and all(c > 500 for _, c in worst.values()),
           f"sweep covered {sum(c for _, c in worst.values())} (kernel, "
           f"length) pairs")
 
@@ -898,12 +963,17 @@ def envelope_phase(torch, p3):
         x = cu((16384, n))
         yr, yi = p3.rfft_last_packed(x)
         z = torch.fft.rfft(x, dim=-1)
-        b_ms, b_by = bound(2 * nbytes(x), fft_flops(x.numel(), n, True))
-        for name, kern, lib in (
+        spec = 16384 * (n // 2 + 1) * 8    # a planar or complex64 spectrum
+        for name, kern, lib, nb in (
                 ("packed_rfft_last", lambda: p3.rfft_last_packed(x),
-                 lambda: torch.fft.rfft(x, dim=-1)),
+                 lambda: torch.fft.rfft(x, dim=-1), 2 * nbytes(x)),
                 ("packed_irfft_last", lambda: p3.irfft_last_packed(yr, yi, n),
-                 lambda: torch.fft.irfft(z, n=n, dim=-1))):
+                 lambda: torch.fft.irfft(z, n=n, dim=-1), 2 * nbytes(x)),
+                ("planar_rfft_last", lambda: p3.rfft_last_planar(x),
+                 lambda: torch.fft.rfft(x, dim=-1), nbytes(x) + spec),
+                ("dense_rfft_last", lambda: dn.rfft_last(x),
+                 lambda: torch.fft.rfft(x, dim=-1), nbytes(x) + spec)):
+            b_ms, b_by = bound(nb, fft_flops(x.numel(), n, True))
             k1, l1 = median_ms(torch, kern, 10), median_ms(torch, lib, 10)
             k2 = median_ms(torch, kern, 10)
             print(f"time sweep {name} n={n} (16384 rows): kernel {k1:.4f} / "
@@ -2003,7 +2073,7 @@ def main():
     rng = np.random.default_rng(SEED)
     kern = kernel_phase(torch, p3, zd, dn, rng)
     kern.update(peer_kernel_phase(torch, rdma, rng))
-    envelope_phase(torch, p3)
+    envelope_phase(torch, p3, dn)
 
     # the main path: each of its paths runs with the counts set to 0 just
     # before it and read just after

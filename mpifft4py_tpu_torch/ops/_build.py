@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fft_axis.cu", "packed_rfft.cu", "curl_ifft_x.cu",
            "cross_rfft_z.cu", "fft_x_epilogue.cu", "planar_rfft.cu",
            "fft_last.cu", "peer_fft_x.cu", "peer_a2a.cu")
-HEADERS = ("fft_block.cuh", "packed_z.cuh")
+HEADERS = ("fft_block.cuh", "packed_z.cuh", "bulk_ring.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -564,6 +564,16 @@ __device__ __forceinline__ void stage_fast_last(const float2* s, int n,
   }
 }
 
+// Values a thread holds in a stage of the row kernels (fft_last.cu,
+// planar_rfft.cu's r2c): 16 (256 threads a tile of kTile, at most 128
+// registers) for the plans of radix 2, 3 and 4; 8 (512 threads, at most 64
+// registers) for the mixed instance, whose radix-5/7 and pair-sum stages
+// spilled 784 bytes a thread at 16.  On an H100 the other choice was 41%
+// slower at row 10's n = 256 and 27% slower at row 20's n = 129
+// (tools/ab_fft_last.py).  Two blocks share a multiprocessor either way.
+template <bool kMixed>
+constexpr int kRowEPT = kMixed ? 8 : 16;
+
 // block_fft's plan over the tile with the stages above: radix 2, 3 and 4
 // (5 and 7 if kMixed) as stage_fast, each prime factor p >= 11 as
 // stage_pairsum (kMixed only).  ncol.d < 2^16 columns, n * ncol < 2^16;

@@ -28,10 +28,10 @@
 // - a persistent grid (the instance's resident blocks a multiprocessor x
 //   the multiprocessors, at most one block a tile) walks the tiles
 //   blockIdx.x, + gridDim.x, ...;
-// - two slots in shared memory, an mbarrier each: one thread copies tile
-//   it + 1 in with 1-D bulk copies (TMA, cp.async.bulk ...
-//   mbarrier::complete_tx::bytes, one a plane) while the block transforms
-//   tile it;
+// - two slots in shared memory, an mbarrier each (bulk_ring.cuh, shared
+//   with planar_rfft.cu's r2c): one thread copies tile it + 1 in with 1-D
+//   bulk copies (TMA, cp.async.bulk ... mbarrier::complete_tx::bytes, one a
+//   plane) while the block transforms tile it;
 // - a shared -> shared pass moves the row-major slot into the transposed
 //   work tile (index-major, column = row, pitch RB + 1 so the strided
 //   accesses spread over the banks), block_fft_fast (fft_block.cuh: the
@@ -52,138 +52,16 @@
 //   stage_pairsum, ~1/4 of the direct stage's arithmetic).
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 
+#include "bulk_ring.cuh"
 #include "fft_block.cuh"
 
 using fftblock::Plan;
 
 namespace {
 
-// Values a thread holds in a stage: 16 (256 threads a tile of kTile, at
-// most 128 registers) for the plans of radix 2, 3 and 4; 8 (512 threads, at
-// most 64 registers) for the mixed instance, whose radix-5/7 and pair-sum
-// stages spilled 784 bytes a thread at 16.  On an H100 the other choice
-// was 41% slower at row 10's n = 256 and 27% slower at row 20's n = 129
-// (tools/ab_fft_last.py).  Two blocks share a multiprocessor either way.
-template <bool kMixed>
-constexpr int kRowEPT = kMixed ? 8 : 16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// The one arrival of a phase, with the bytes its copies will deliver.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
-                                         uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
-}
-
-// Generic-proxy shared memory accesses before it, async-proxy (bulk copy)
-// ones after it.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// One plane's run of a tile, in values of kBytes bytes: the run starts
-// `mis` values past a 16-byte boundary; values [head, head + bulk) go by
-// bulk copy, to or from slot index mis + e (16-byte aligned), the rest by
-// ordinary loads and stores.
-struct Run {
-  int mis, head, bulk;
-};
-
-template <int kBytes>
-__device__ __forceinline__ Run run_of(const void* base, long long v0,
-                                      int len) {
-  constexpr int kUnit = 16 / kBytes;
-  const uintptr_t a = reinterpret_cast<uintptr_t>(base) +
-                      static_cast<uintptr_t>(v0) * kBytes;
-  Run r;
-  r.mis = static_cast<int>(a & 15) / kBytes;
-  r.head = min((kUnit - r.mis) % kUnit, len);
-  r.bulk = (len - r.head) / kUnit * kUnit;
-  return r;
-}
-
-__device__ __forceinline__ bool in_bulk(const Run& r, int e) {
-  return e >= r.head && e < r.head + r.bulk;
-}
-
-// Floats a plane of a slot: a tile's L values, up to 3 more in front
-// (mis), rounded up to 16 bytes.  A kC64 slot holds L + 1 float2 in the
-// same 2 * plane floats.
-__host__ __device__ inline int slot_plane(int L) { return (L + 7) & ~3; }
-
-// Thread 0: copy values [v0, v0 + len) of each plane into `slot`, arriving
-// on `bar` with the bytes to expect.
-template <bool kC64>
-__device__ void load_tile(const float* xr, const float* xi, long long v0,
-                          int len, float* slot, int PL, uint64_t* bar) {
-  constexpr int kB = kC64 ? 8 : 4;
-  const Run r0 = run_of<kB>(xr, v0, len);
-  const Run r1 = kC64 ? Run{0, 0, 0} : run_of<kB>(xi, v0, len);
-  fence_async_shared();
-  mbar_expect_tx(bar, (r0.bulk + r1.bulk) * kB);
-  if (r0.bulk)
-    bulk_g2s(slot + (r0.mis + r0.head) * (kB / 4),
-             xr + (v0 + r0.head) * (kB / 4), r0.bulk * kB, bar);
-  if (r1.bulk)
-    bulk_g2s(slot + PL + r1.mis + r1.head, xi + v0 + r1.head, r1.bulk * kB,
-             bar);
-}
-
-// Thread 0: store the staged values [v0, v0 + len) of each plane from
-// `slot` (their bulk part; the threads wrote the rest) as one bulk group.
-template <bool kC64>
-__device__ void store_tile(float* yr, float* yi, long long v0, int len,
-                           const float* slot, int PL) {
-  constexpr int kB = kC64 ? 8 : 4;
-  const Run r0 = run_of<kB>(yr, v0, len);
-  if (r0.bulk)
-    bulk_s2g(yr + (v0 + r0.head) * (kB / 4),
-             slot + (r0.mis + r0.head) * (kB / 4), r0.bulk * kB);
-  if (!kC64) {
-    const Run r1 = run_of<kB>(yi, v0, len);
-    if (r1.bulk)
-      bulk_s2g(yi + v0 + r1.head, slot + PL + r1.mis + r1.head,
-               r1.bulk * kB);
-  }
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
+using namespace bulkring;
 
 // Tile it of a block lands in slot it % 2.  In iteration it the block
 // waits for tile it and moves it into the work tile; then thread 0 waits
@@ -191,7 +69,8 @@ __device__ void store_tile(float* yr, float* yi, long long v0, int len,
 // tile it + 1 into it, while the block transforms tile it, stages the
 // spectrum row-major in slot it % 2 (now free) and thread 0 stores it.
 template <bool kC64, bool kMixed>
-__global__ void __launch_bounds__(fftblock::kTile / kRowEPT<kMixed>, 2)
+__global__ void
+__launch_bounds__(fftblock::kTile / fftblock::kRowEPT<kMixed>, 2)
 fft_last_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi,
                 const float2* __restrict__ tw, Plan plan, int n,
@@ -214,8 +93,8 @@ fft_last_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     mbar_init(&bar[0]);
     mbar_init(&bar[1]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    load_tile<kC64>(xr, xi, blockIdx.x * static_cast<long long>(L),
-                    len_of(blockIdx.x), smem, PL, &bar[0]);
+    load_tile<kB, !kC64>(xr, xi, blockIdx.x * static_cast<long long>(L),
+                         len_of(blockIdx.x), smem, PL, &bar[0]);
   }
   __syncthreads();
 
@@ -252,8 +131,8 @@ fft_last_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     const long long next = tile + gridDim.x;
     if (threadIdx.x == 0 && next < tiles) {
       asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-      load_tile<kC64>(xr, xi, next * L, len_of(next),
-                      smem + (b ^ 1) * 2 * PL, PL, &bar[b ^ 1]);
+      load_tile<kB, !kC64>(xr, xi, next * L, len_of(next),
+                           smem + (b ^ 1) * 2 * PL, PL, &bar[b ^ 1]);
     }
 
     // row rho, index k of the spectrum, scaled: staged row-major in the
@@ -281,7 +160,7 @@ fft_last_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           yi[v0 + e] = v.y;
       }
     };
-    if (!fftblock::block_fft_fast<kMixed, kRowEPT<kMixed>>(
+    if (!fftblock::block_fft_fast<kMixed, fftblock::kRowEPT<kMixed>>(
             s, n, fcol, pitch, plan, tw, sign, put)) {
       for (int e = threadIdx.x; e < len; e += blockDim.x) {
         const int rho = fn.div(e);
@@ -291,7 +170,7 @@ fft_last_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     }
     fence_async_shared();
     __syncthreads();
-    if (threadIdx.x == 0) store_tile<kC64>(yr, yi, v0, len, slot, PL);
+    if (threadIdx.x == 0) store_tile<kB, !kC64>(yr, yi, v0, len, slot, PL);
   }
   if (threadIdx.x == 0)
     asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
@@ -314,29 +193,14 @@ int launch_instance(const float* xr, const float* xi, float* yr, float* yi,
                     int n, float sign, float scale, cudaStream_t stream) {
   constexpr int kB = kC64 ? 8 : 4;
   const int RB = tile_rows(n, 16 / kB);
-  constexpr int kE = kRowEPT<kMixed>;
+  constexpr int kE = fftblock::kRowEPT<kMixed>;
   const int threads = (n * RB + kE * 32 - 1) / (kE * 32) * 32;
   const size_t smem = sizeof(float) * 4 * slot_plane(n * RB) +
                       sizeof(float2) * n * (RB + 1) + sizeof(uint64_t) * 2;
   const long long tiles = (rows + RB - 1) / RB;
-  auto kernel = fft_last_kernel<kC64, kMixed>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long grid =
-      std::min(tiles, static_cast<long long>(per_sm) * sms);
-  kernel<<<static_cast<unsigned>(grid), threads, smem, stream>>>(
-      xr, xi, yr, yi, tw, plan, n, rows, RB, sign, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(fft_last_kernel<kC64, kMixed>, tiles, threads,
+                           smem, stream, xr, xi, yr, yi, tw, plan, n, rows,
+                           RB, sign, scale);
 }
 
 template <bool kC64>

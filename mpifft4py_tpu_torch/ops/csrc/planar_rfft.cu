@@ -40,17 +40,47 @@
 //
 // Like packed_rfft.cu it is bound by HBM bytes: 4 bytes a real sample and
 // 8 a spectral column (about 2.5 n log2 n flops a row is far below the
-// 67 TFLOP/s of FP32).  The 3/2-rule rows (n = 384, h = 192 = 3 * 64) run
-// the radix-3 stage of fft_block.cuh; RB = 21 rows a block, and the last
-// block of a stack whose row count is not a multiple of 21 is masked.
+// 67 TFLOP/s of FP32).  The c2r and the odd-n kernels take one tile of RB
+// rows a block (RB * m <= kTile), load, transform and store it in turn,
+// and mask the last block of a ragged stack.  The r2c (planar_rfft_kernel,
+// rows 8 and 21) is fft_last.cu's persistent design (bulk_ring.cuh) with
+// two row lengths, n floats in and ld values out:
+//
+// - a tile is RB whole rows: one run of RB * n input floats and one run of
+//   RB * ld output values a plane (planar: two planes of floats; kC64: one
+//   of float2); RB is the most rows with h * RB <= kTile whose input and
+//   output runs are multiples of 16 bytes (so every tile of an aligned
+//   tensor goes wholly by bulk copy) and whose two slots and work tile fit
+//   in a block's shared memory; a slot holds the larger of the two runs;
+// - a persistent grid walks the tiles; one thread brings tile it + 1 into
+//   the other slot with a bulk copy (an mbarrier a slot) while the block
+//   works on tile it;
+// - a landing pass forms z_t = x[2t] + i*x[2t+1] in the transposed work
+//   tile; block_fft_fast (fft_block.cuh: Stockham stages with index
+//   division by multiply-high, a pair-sum stage for each prime >= 11, up
+//   to h = 1021) transforms its RB columns, the last stage in place;
+// - the untangle is paired: one thread takes the columns k and h - k of a
+//   row from one load each of Z[k] and Z[h-k] and one twiddle
+//   (untangle_pair), folds in the scale, the doubled column nf - 1 and the
+//   zero columns nf..ld-1, and stages the row-major spectrum in the slot
+//   the tile came in;
+// - one thread stores the slot with bulk copies, one a plane; values off
+//   the 16-byte grid (a view that starts inside a buffer, a ragged last
+//   tile's end) go by ordinary loads and stores.
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
+#include "bulk_ring.cuh"
 #include "fft_block.cuh"
 #include "packed_z.cuh"
 
 using fftblock::Plan;
 
 namespace {
+
+using namespace bulkring;
 
 template <bool kC64>
 __device__ __forceinline__ float2 get(const float* __restrict__ xr,
@@ -60,63 +90,163 @@ __device__ __forceinline__ float2 get(const float* __restrict__ xr,
               : make_float2(xr[g], xi[g]);
 }
 
-template <bool kC64>
-__device__ __forceinline__ void put(float* __restrict__ yr,
-                                    float* __restrict__ yi, long long g,
-                                    float re, float im) {
-  if (kC64) {
-    reinterpret_cast<float2*>(yr)[g] = make_float2(re, im);
-  } else {
-    yr[g] = re;
-    yi[g] = im;
-  }
+// Columns k and h - k (1 <= k < h - k) of a row from its spectral pair
+// Z = Z[k], Zf = Z[h-k] and w = tw_n[k] = exp(-2 pi i k/n): packed_z.cuh's
+// untangle for both, with exp(-2 pi i (h-k)/n) = -conj(w):
+//   X[k] = (Er + A, Ei + B),  X[h-k] = (Er - A, B - Ei),
+// Er, Ei, Or, Oi as there and A + iB = w (Or + i Oi).
+__device__ __forceinline__ void untangle_pair(float2 Z, float2 Zf, float2 w,
+                                              float2& Xk, float2& Xf) {
+  const float Er = 0.5f * (Z.x + Zf.x);
+  const float Ei = 0.5f * (Z.y - Zf.y);
+  const float Or = 0.5f * (Z.y + Zf.y);
+  const float Oi = 0.5f * (Zf.x - Z.x);
+  const float A = w.x * Or - w.y * Oi;
+  const float B = w.x * Oi + w.y * Or;
+  Xk = make_float2(Er + A, Ei + B);
+  Xf = make_float2(Er - A, B - Ei);
 }
 
+// Tile it of a block lands in slot it % 2 (SL floats a slot).  In iteration
+// it the block waits for tile it and moves it into the work tile; then
+// thread 0 waits until the bulk store of tile it - 1 has read slot
+// (it + 1) % 2 and loads tile it + 1 into it, while the block transforms
+// tile it, stages its spectrum row-major in slot it % 2 (now free) and
+// thread 0 stores it.  kC64: yr is the interleaved output, yi unused.
 template <bool kC64, bool kMixed>
-__global__ void __launch_bounds__(1024)
+__global__ void
+__launch_bounds__(fftblock::kTile / fftblock::kRowEPT<kMixed>, 2)
 planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
                    float* __restrict__ yi, const float2* __restrict__ tw_h,
                    const float2* __restrict__ tw_n, Plan plan, int n,
                    long long rows, int RB, int nf, int ld, int dbl,
-                   float scale) {
-  extern __shared__ float2 s[];
+                   float scale, int SL) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kB = kC64 ? 8 : 4;
   const int h = n / 2;
+  const int PL = slot_plane(ld * RB);  // the im plane's offset in a slot
   const int pitch = RB + 1;
-  const long long row0 = static_cast<long long>(blockIdx.x) * RB;
-  const int elems = h * RB;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int rho = e / h;
-    const int t = e % h;
-    float2 v = make_float2(0.f, 0.f);
-    if (row0 + rho < rows)
-      v = reinterpret_cast<const float2*>(x + (row0 + rho) * n)[t];
-    s[t * pitch + rho] = v;
+  float2* s = reinterpret_cast<float2*>(smem + 2 * SL);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s + h * pitch);
+  const long long tiles = (rows + RB - 1) / RB;
+  // items a row of the untangle: the pairs (k, h - k) for k = 0..h/2 with
+  // a column below nf (k = 0: X[0] and X[h])
+  const int kmax = min(h / 2 + 1, nf);
+  const int pad = ld - nf;
+  const fftblock::FastDiv fh(h), fcol(RB), fk(kmax), fpad(max(pad, 1));
+  const float last = dbl ? 2.f * scale : scale;
+  const auto rows_of = [&](long long t) {
+    return static_cast<int>(min(static_cast<long long>(RB), rows - t * RB));
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    load_tile<4, false>(x, nullptr,
+                        blockIdx.x * static_cast<long long>(RB) * n,
+                        rows_of(blockIdx.x) * n, smem, 0, &bar[0]);
   }
   __syncthreads();
-  fftblock::block_fft<kMixed>(s, h, RB, pitch, plan, tw_h, -1.f);
-  // columns 0..kmax-1 come from the untangle; column h from plane 0
-  const int kmax = nf < h ? nf : h;
-  const float last = dbl ? 2.f * scale : scale;
-  for (int e = threadIdx.x; e < kmax * RB; e += blockDim.x) {
-    const int rho = e / kmax;
-    const int k = e % kmax;
-    if (row0 + rho >= rows) continue;
-    const float2 X = packedz::untangle(s, pitch, rho, k, h, tw_n);
-    const long long g = (row0 + rho) * ld;
-    const float w = k == nf - 1 ? last : scale;
-    if (k == 0) {  // X = (X[0], X[h])
-      put<kC64>(yr, yi, g, X.x * w, 0.f);
-      if (nf == h + 1) put<kC64>(yr, yi, g + h, X.y * scale, 0.f);
-    } else {
-      put<kC64>(yr, yi, g + k, X.x * w, X.y * w);
+
+  long long tile = blockIdx.x;
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int b = it & 1;
+    float* slot = smem + b * SL;
+    const int nrows = rows_of(tile);
+    const long long v0 = tile * RB * n;
+    const int len = nrows * n;
+    mbar_wait(&bar[b], (it >> 1) & 1);
+
+    // the landing slot (row-major floats) -> the work tile: z_t of row rho
+    // at s[t * pitch + rho]; rows past the end are zeros
+    const Run r = run_of<4>(x, v0, len);
+    for (int e = threadIdx.x; e < h * RB; e += blockDim.x) {
+      const int rho = fh.div(e);
+      const int t = e - rho * h;
+      const int f = 2 * e;
+      float2 v = make_float2(0.f, 0.f);
+      if (f < len) {
+        if (!(r.mis & 1) && in_bulk(r, f) && in_bulk(r, f + 1)) {
+          v = *reinterpret_cast<const float2*>(slot + r.mis + f);
+        } else {
+          v.x = in_bulk(r, f) ? slot[r.mis + f] : __ldg(x + v0 + f);
+          v.y = in_bulk(r, f + 1) ? slot[r.mis + f + 1]
+                                  : __ldg(x + v0 + f + 1);
+        }
+      }
+      s[t * pitch + rho] = v;
     }
+    __syncthreads();
+    const long long next = tile + gridDim.x;
+    if (threadIdx.x == 0 && next < tiles) {
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      load_tile<4, false>(x, nullptr, next * RB * n, rows_of(next) * n,
+                          smem + (b ^ 1) * SL, 0, &bar[b ^ 1]);
+    }
+
+    // Z = the h-point spectrum of each column, left in the work tile (the
+    // last register stage writes in place: its outputs are its inputs'
+    // slots)
+    const auto keep = [&](int c, int k, float2 v) { s[k * pitch + c] = v; };
+    fftblock::block_fft_fast<kMixed, fftblock::kRowEPT<kMixed>>(
+        s, h, fcol, pitch, plan, tw_h, -1.f, keep);
+    __syncthreads();
+
+    // row rho, column c of the spectrum: staged row-major in the slot for
+    // the bulk store, or stored where it cannot go by bulk copy
+    const long long w0 = tile * RB * ld;
+    const int lout = nrows * ld;
+    const Run o0 = run_of<kB>(yr, w0, lout);
+    const Run o1 = kC64 ? o0 : run_of<kB>(yi, w0, lout);
+    const auto put = [&](int rho, int c, float re, float im) {
+      const int e = rho * ld + c;
+      if (kC64) {
+        if (in_bulk(o0, e))
+          reinterpret_cast<float2*>(slot)[o0.mis + e] = make_float2(re, im);
+        else
+          reinterpret_cast<float2*>(yr)[w0 + e] = make_float2(re, im);
+      } else {
+        if (in_bulk(o0, e))
+          slot[o0.mis + e] = re;
+        else
+          yr[w0 + e] = re;
+        if (in_bulk(o1, e))
+          slot[PL + o1.mis + e] = im;
+        else
+          yi[w0 + e] = im;
+      }
+    };
+    for (int e = threadIdx.x; e < nrows * kmax; e += blockDim.x) {
+      const int rho = fk.div(e);
+      const int k = e - rho * kmax;
+      const float2 Z = s[k * pitch + rho];
+      if (k == 0) {  // X[0] = Z.x + Z.y, X[h] = Z.x - Z.y (nf >= 2)
+        put(rho, 0, (Z.x + Z.y) * scale, 0.f);
+        if (nf == h + 1) put(rho, h, (Z.x - Z.y) * scale, 0.f);
+        continue;
+      }
+      const float2 Zf = s[(h - k) * pitch + rho];
+      float2 Xk, Xf;
+      untangle_pair(Z, Zf, __ldg(&tw_n[k]), Xk, Xf);
+      const float wk = k == nf - 1 ? last : scale;
+      put(rho, k, Xk.x * wk, Xk.y * wk);
+      if (h - k != k && h - k < nf) {
+        const float wf = h - k == nf - 1 ? last : scale;
+        put(rho, h - k, Xf.x * wf, Xf.y * wf);
+      }
+    }
+    for (int e = threadIdx.x; e < nrows * pad; e += blockDim.x) {
+      const int rho = fpad.div(e);
+      put(rho, nf + e - rho * pad, 0.f, 0.f);
+    }
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      store_tile<kB, !kC64>(yr, yi, w0, lout, slot, PL);
   }
-  const int pad = ld - nf;
-  for (int e = threadIdx.x; e < pad * RB; e += blockDim.x) {
-    const int rho = e / pad;
-    if (row0 + rho < rows)
-      put<kC64>(yr, yi, (row0 + rho) * ld + nf + e % pad, 0.f, 0.f);
-  }
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // Column k (0 <= k < h) of the packed form of a planar row at g with
@@ -250,21 +380,81 @@ irfft_full_kernel(const float2* __restrict__ x, float* __restrict__ y,
   }
 }
 
+// The r2c's tile: RB rows, SL floats a slot, smem bytes a block.
+struct RfftTile {
+  int RB, SL;
+  size_t smem;
+};
+
+// The most rows with h * RB <= kTile whose input run (RB * n floats) and
+// output run (RB * ld values of kB bytes) are multiples of 16 bytes and
+// whose two slots and work tile fit in max_smem bytes; failing alignment,
+// the most rows that fit; RB = 0 if none does.  A slot holds the input
+// run or the output runs, each with up to 16 bytes in front.
+RfftTile rfft_tile(int n, int ld, int kB, int max_smem) {
+  const int h = n / 2;
+  RfftTile best{0, 0, 0};
+  for (int RB = fftblock::kTile / h; RB >= 1; --RB) {
+    const long long out = static_cast<long long>(RB) * ld;
+    if (8 * out > max_smem) continue;
+    const int SL = std::max(slot_plane(RB * n),
+                            2 * slot_plane(static_cast<int>(out)));
+    const size_t smem = sizeof(float) * 2 * SL +
+                        sizeof(float2) * h * (RB + 1) + sizeof(uint64_t) * 2;
+    if (smem > static_cast<size_t>(max_smem)) continue;
+    const RfftTile g{RB, SL, smem};
+    if ((RB * n * 4) % 16 == 0 && (out * kB) % 16 == 0) return g;
+    if (!best.RB) best = g;
+  }
+  return best;
+}
+
+template <bool kC64, bool kMixed>
+int launch_rfft_instance(const float* x, float* yr, float* yi,
+                         const float2* tw_h, const float2* tw_n,
+                         const Plan& plan, long long rows, int n, int nf,
+                         int ld, int dbl, float scale, cudaStream_t stream) {
+  constexpr int kE = fftblock::kRowEPT<kMixed>;
+  int dev = 0, max_smem = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(
+           &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const RfftTile g = rfft_tile(n, ld, kC64 ? 8 : 4, max_smem);
+  if (!g.RB) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (n / 2 * g.RB + kE * 32 - 1) / (kE * 32) * 32;
+  const long long tiles = (rows + g.RB - 1) / g.RB;
+  return launch_persistent(planar_rfft_kernel<kC64, kMixed>, tiles, threads,
+                           g.smem, stream, x, yr, yi, tw_h, tw_n, plan, n,
+                           rows, g.RB, nf, ld, dbl, scale, g.SL);
+}
+
+// A base misaligned for its value type (x, planar yr/yi not 4-byte
+// aligned; kC64 y not 8-byte aligned) is refused.
 template <bool kC64>
 int launch_rfft(const float* x, float* yr, float* yi, const void* tw_h,
                 const void* tw_n, long long rows, int n, int nf, int ld,
                 int dbl, float scale, void* stream) {
-  fftblock::RowGeometry g;
-  const int bad = packedz::half_geometry(n, rows, &g);
-  if (bad) return bad;
-  if (nf < 2 || nf > n / 2 + 1 || ld < nf)
+  if (n % 2 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan plan = fftblock::make_plan(n / 2);
+  if (plan.nst == 0 || nf < 2 || nf > n / 2 + 1 || ld < nf)
     return static_cast<int>(cudaErrorInvalidValue);
-  return fftblock::launch_kernel(
-      fftblock::mixed_plan(g.plan) ? planar_rfft_kernel<kC64, true>
-                                   : planar_rfft_kernel<kC64, false>,
-      g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream), x, yr,
-      yi, static_cast<const float2*>(tw_h), static_cast<const float2*>(tw_n),
-      g.plan, n, rows, g.RB, nf, ld, dbl, scale);
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(yi)) %
+          4 ||
+      reinterpret_cast<uintptr_t>(yr) % (kC64 ? 8 : 4))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const auto* th = static_cast<const float2*>(tw_h);
+  const auto* tn = static_cast<const float2*>(tw_n);
+  auto st = static_cast<cudaStream_t>(stream);
+  return fftblock::mixed_plan(plan)
+             ? launch_rfft_instance<kC64, true>(x, yr, yi, th, tn, plan,
+                                                rows, n, nf, ld, dbl, scale,
+                                                st)
+             : launch_rfft_instance<kC64, false>(x, yr, yi, th, tn, plan,
+                                                 rows, n, nf, ld, dbl, scale,
+                                                 st);
 }
 
 template <bool kC64>

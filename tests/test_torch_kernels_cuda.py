@@ -324,6 +324,53 @@ def test_fft_last_unaligned_and_ragged(cuda, n, rows, off, inverse):
                 lambda a: dn.fft_axis(a, 1, not inverse), (x,))
 
 
+# the persistent r2c's edges (rows 21 and 8, planar_rfft_kernel): inputs
+# that start one value or one row into a larger buffer (the bulk copies'
+# heads and tails), 201 rows and 3-stacks whose row counts are not a
+# multiple of a tile's rows (32 at n = 256, 20 at n = 384), the 3/2 rule's
+# truncated z stage (nf = 129, doubled, scaled) and the pencil's widths 130
+# and 132 through out= (a pair that may itself start one value into a
+# buffer); each against its twin and in a round trip through the c2r
+@pytest.mark.parametrize("shape,off,nf,width,out_off", [
+    ((4096, 256), 1, None, None, 0), ((4096, 256), 256, None, None, 0),
+    ((201, 256), 0, None, None, 0), ((3, 67, 256), 1, None, None, 0),
+    ((3, 7, 384), 0, 129, None, 0), ((201, 384), 1, 129, None, 0),
+    ((1000, 384), 384, None, None, 0), ((128, 128, 256), 0, 129, 130, 0),
+    ((201, 256), 1, 129, 130, 1), ((3, 67, 256), 3, 129, 132, 2)])
+def test_planar_rfft_unaligned_and_ragged(cuda, shape, off, nf, width,
+                                          out_off):
+    from mpifft4py_tpu_torch.ops import dense as dn
+    n = shape[-1]
+    x = _f32((int(np.prod(shape)) + off,), cuda, 5)[off:].view(shape)
+    if nf is not None:
+        # band-limited to the nf columns (the 3/2 rule's padded field), so
+        # the truncated forward and the c2r's pad are a round trip
+        sr, si = (_f32(shape[:-1] + (nf,), cuda, s) for s in (6, 7))
+        x.copy_(p3.irfft_last_planar_ref(sr, si, n, nf))
+    sc = 1 / 1.5 ** 3 if n == 384 else 1.0
+    out = None
+    if width is not None:
+        rows = int(np.prod(shape[:-1]))
+        out = tuple(torch.zeros(rows * width + out_off, device=cuda)
+                    [out_off:].view(shape[:-1] + (width,)) for _ in "ri")
+    before = p3.LAUNCHES["planar_rfft_last"]
+    got = p3.rfft_last_planar(x, nf, sc, width, out)
+    assert p3.LAUNCHES["planar_rfft_last"] == before + 1
+    _close(got, p3.rfft_last_planar_ref(x, nf, sc, width))
+    if out is not None:
+        assert got[0].data_ptr() == out[0].data_ptr()
+    _round_trip(lambda a: p3.rfft_last_planar(a, nf, sc, width),
+                lambda a, b: p3.irfft_last_planar(a, b, n, nf, 1 / sc), (x,))
+    if nf is None:
+        before = p3.LAUNCHES["dense_rfft_last"]
+        X = dn.rfft_last(x)
+        assert p3.LAUNCHES["dense_rfft_last"] == before + 1
+        _close(torch.view_as_real(X),
+               torch.view_as_real(dn.rfft_last_ref(x)))
+        _round_trip(lambda a: (dn.rfft_last(a),),
+                    lambda a: dn.irfft_last(a, n), (x,))
+
+
 def test_c2c_on_the_card_matches_float64(cuda):
     N = (32, 48, 64)
     C = C2C(np.array(N), np.array([2 * np.pi] * 3), None, "single",

@@ -1,44 +1,59 @@
 #!/usr/bin/env python3
-"""A/B of the last-axis c2c kernel (``ops/csrc/fft_last.cu``, rows 10 and 20).
+"""A/B of the persistent row kernels: the last-axis c2c (``ops/csrc/
+fft_last.cu``, rows 10 and 20) and the even-n r2c (``ops/csrc/
+planar_rfft.cu``'s ``planar_rfft_kernel``, rows 8 and 21).
 
-    python3 tools/ab_fft_last.py [--src DIR[:FLAGS] ...] [--iters 30]
+    python3 tools/ab_fft_last.py [--kernel fft_last|planar_rfft]
+                                 [--src DIR[:FLAGS] ...] [--iters 30]
                                  [--edit 'LABEL:REGEX=>REPL' ...] [--sweep]
 
 For each ``--src`` directory (a copy of ``mpifft4py_tpu_torch/ops/csrc``;
 default the package's own; after a colon, extra nvcc flags separated by
-commas, e.g. ``csrc:-lineinfo``), builds two libraries from its
-``fft_last.cu`` with one ``nvcc`` each, all started together, under
-``build/ab_fft_last/``:
+commas, e.g. ``csrc:-lineinfo``), builds two libraries from the kernel's
+source (``fft_last.cu`` or ``planar_rfft.cu``, with every ``*.cuh`` of the
+directory beside it) with one ``nvcc`` each, all started together, under
+``build/ab_<kernel>/``:
 
 - ``full``: the source as it is;
-- ``copy``: the same source with the ``fftblock::block_fft...`` call cut
-  out, so the kernel only moves each tile in (global -> shared) and back
-  out (shared -> global), with no FFT stages;
-- one more library for each ``--edit`` of the last ``--src``: its
-  ``fft_last.cu`` and ``fft_block.cuh`` with every match of REGEX replaced
-  by REPL (several pairs separated by ``;;``), e.g. a kernel without its
-  global stores, to see what each part of the kernel costs.
+- ``copy``: the same source with the kernel's ``fftblock::block_fft...``
+  call cut out (and, for ``planar_rfft``, its untangle replaced by the
+  spectrum's own values), so the kernel only moves each tile in (global ->
+  shared) and back out (shared -> global), with no FFT stages;
+- one more library for each ``--edit`` of the last ``--src``: its source
+  and headers with every match of REGEX replaced by REPL (several pairs
+  separated by ``;;``), e.g. a kernel without its global stores, to see
+  what each part of the kernel costs.
 
 Then it times every library's kernel, in turns (forward order, then
-backward), at the shapes the main path gives it: row 10 (planar float32
-(65536, 256), the 256^3 C2C's z stage), row 10 at n = 384 (the 3/2 rule's
-(147456, 384)) and row 20 (complex64 (65536, 129), the dense 256^3 chain's
-last axis), beside one ``torch.fft.fft`` call on the same data.  Each time
-is the median of ``--iters`` CUDA-event timings; the rate counts each input
-byte read once and each output byte written once.  Each ``full`` library's
-outputs are held against ``torch.fft`` (relative 1e-5).  ``--sweep`` first
-holds the last ``--src``'s full library, both layouts, at every n in
-2..1024 against ``torch.fft`` (1e-5) and in a round trip (1e-6), on
-37 rows and on a view that starts one value into a larger buffer (a base
-that is not 16-byte aligned).  Prints the card's
-name and power limit, one line a (shape, variant), and writes the numbers
-to ``chiprun_out/ab_fft_last.json``.  Needs a CUDA card and ``nvcc``.
+backward), at the shapes the main path gives it, beside one ``torch.fft``
+call on the same data:
+
+- ``fft_last``: row 10 (planar float32 (65536, 256), the 256^3 C2C's z
+  stage), row 10 at n = 384 (the 3/2 rule's (147456, 384)) and row 20
+  (complex64 (65536, 129), the dense 256^3 chain's last axis);
+- ``planar_rfft``: row 21 (float32 (65536, 256) -> complex64 (65536, 129),
+  the dense 256^3 chain's r2c), row 8 (float32 (442368, 384) -> planar
+  (442368, 129), nf = 129 with the column doubled and scale 1/1.5^3, the
+  3/2 rule's z stage) and the 2x2 pencil's z stage (float32 (16384, 256)
+  -> planar (16384, 130), zeros in column 129).
+
+Each time is the median of ``--iters`` CUDA-event timings; the rate counts
+each input byte read once and each output byte written once.  Each ``full``
+library's outputs are held against ``torch.fft`` (relative 1e-5).
+``--sweep`` first holds the last ``--src``'s full library, both layouts,
+against ``torch.fft`` (1e-5) and in a round trip (1e-6), on 37 rows and on
+views that start one value into a larger buffer (bases off the bulk
+copies' 16-byte grid): ``fft_last`` at every n in 2..1024; ``planar_rfft``
+at every even n in 4..2048, the planar layout also with nf < n/2 + 1 (the
+column nf - 1 doubled, scaled) into a width > nf (its round trip through
+the same library's c2r where nf = n/2 + 1).  Prints the card's name and
+power limit, one line a (shape, variant), and writes the numbers to
+``chiprun_out/ab_<kernel>.json``.  Needs a CUDA card and ``nvcc``.
 """
 
 import argparse
 import ctypes
 import json
-import os
 import re
 import subprocess
 import sys
@@ -51,10 +66,33 @@ sys.path.insert(0, str(ROOT))
 
 from mpifft4py_tpu_torch.ops import _build  # noqa: E402
 
-OUT = ROOT / "build" / "ab_fft_last"
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-SIGS = {"fft_last_launch": (_P,) * 5 + (_L, _I, _I, ctypes.c_float, _P),
-        "fft_last_c64_launch": (_P, _P, _P, _L, _I, _I, _P)}
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+# kernel: its source, its entry points' argtypes, and the copy-only cuts:
+# groups of (REGEX, REPL) alternatives, each group matching exactly once
+KERNELS = {
+    "fft_last": dict(
+        source="fft_last.cu",
+        sigs={"fft_last_launch": (_P,) * 5 + (_L, _I, _I, _F, _P),
+              "fft_last_c64_launch": (_P, _P, _P, _L, _I, _I, _P)},
+        # the block_fft... call: a statement, or the condition of the store
+        # pass that runs when the last stage did not store
+        copy=[[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
+               (r"!fftblock::block_fft\w*<[^;{]*\)\)", "true)")]]),
+    "planar_rfft": dict(
+        source="planar_rfft.cu",
+        sigs={"planar_rfft_launch": (_P,) * 5 + (_L, _I, _I, _I, _I, _F, _P),
+              "planar_irfft_launch": (_P,) * 5 + (_L, _I, _I, _I, _F, _P),
+              "rfft_c64_launch": (_P,) * 4 + (_L, _I, _P),
+              "irfft_c64_launch": (_P,) * 4 + (_L, _I, _P)},
+        # the r2c kernel's block_fft... call (the first after its name),
+        # and its untangle (one spectral value a column, or the pair)
+        copy=[[(r"(planar_rfft_kernel\(.*?)fftblock::block_fft\w*<[^;{]*\);",
+                r"\1")],
+              [(r"packedz::untangle\(s, pitch, rho, k, h, tw_n\)",
+                "s[k * pitch + rho]"),
+               (r"untangle_pair\(Z, Zf, [^;]*\);", "Xk = Z; Xf = Zf;")]]),
+}
 
 
 def substitute(text, edit, name):
@@ -65,29 +103,35 @@ def substitute(text, edit, name):
     return text
 
 
-def build(srcs, edits=()):
+def copy_only(kernel, src, text):
+    for group in KERNELS[kernel]["copy"]:
+        for pat, repl in group:
+            cut, hits = re.subn(pat, repl, text, flags=re.S)
+            if hits:
+                break
+        if hits != 1:
+            raise SystemExit(f"{src}: the copy-only cut {group[0][0]!r} "
+                             f"matched {hits} times, expected 1")
+        text = cut
+    return text
+
+
+def build(kernel, srcs, edits=()):
     """{(label, variant): CDLL} for each source dir, full and copy-only,
     and each edit of the last one."""
-    OUT.mkdir(parents=True, exist_ok=True)
+    out = ROOT / "build" / f"ab_{kernel}"
+    out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
+    main = KERNELS[kernel]["source"]
     jobs = []
     for i, spec in enumerate(srcs):
         src, _, extra = spec.partition(":")
         extra = [f for f in extra.split(",") if f]
-        files = {f: (Path(src) / f).read_text()
-                 for f in ("fft_last.cu", "fft_block.cuh")}
-        # the block_fft... call: a statement, or the condition of the
-        # store pass that runs when the last stage did not store
-        copy, cut = re.subn(r"fftblock::block_fft\w*<[^;{]*\);", "",
-                            files["fft_last.cu"])
-        if not cut:
-            copy, cut = re.subn(r"!fftblock::block_fft\w*<[^;{]*\)\)",
-                                "true)", files["fft_last.cu"])
-        if cut != 1:
-            raise SystemExit(f"{src}/fft_last.cu: found {cut} block_fft "
-                             f"calls, expected 1")
+        files = {p.name: p.read_text()
+                 for p in [Path(src) / main, *sorted(Path(src).glob("*.cuh"))]}
         variants = [("full", files),
-                    ("copy", {**files, "fft_last.cu": copy})]
+                    ("copy", {**files, main: copy_only(kernel, src,
+                                                       files[main])})]
         if i == len(srcs) - 1:
             for edit in edits:
                 name, _, rule = edit.partition(":")
@@ -95,13 +139,13 @@ def build(srcs, edits=()):
                                         for f, t in files.items()}))
         label = f"{i}:{Path(src).resolve().parents[2].name}" + "".join(extra)
         for variant, body in variants:
-            d = OUT / f"{i}_{variant}"
+            d = out / f"{i}_{variant}"
             d.mkdir(exist_ok=True)
             for f, t in body.items():
                 (d / f).write_text(t)
             so = d / "lib.so"
             cmd = [nvcc, *_build.FLAGS, *extra, "-shared", "-I", str(d),
-                   "-o", str(so), str(d / "fft_last.cu")]
+                   "-o", str(so), str(d / main)]
             jobs.append(((label, variant), so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -110,30 +154,56 @@ def build(srcs, edits=()):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {key}:\n{log}")
-        for line in log.splitlines():
-            if re.search(r"registers|spill", line):
-                print(f"ptxas {key[0]} {key[1]}: {line.strip()}")
+        print_ptxas(key, log)
         lib = ctypes.CDLL(str(so))
-        for name, argtypes in SIGS.items():
+        for name, argtypes in KERNELS[kernel]["sigs"].items():
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
         libs[key] = lib
     return libs
 
 
-def sweep(torch, lib, stream):
-    """The library's kernel at every n in 2..1024, both layouts, aligned
-    and one value into a larger buffer: forward against torch.fft (1e-5 of
-    max |twin|), round trip (1e-6 of max |x|).  Returns the failures."""
+def print_ptxas(key, log):
+    """One line a kernel instance: ptxas's registers and spill bytes."""
+    name, spill = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"entry function .*?\d([a-z][a-z_]*_kernel)I"
+                      r"((?:Lb[01]E)+)", line)
+        if m:
+            name = m.group(1) + "<" + ", ".join(
+                re.findall(r"Lb([01])", m.group(2))) + ">"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f", spill stores/loads {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            print(f"ptxas {key[0]} {key[1]} {name}: {m.group(1)} "
+                  f"registers{spill}")
+            name, spill = "?", ""
+
+
+def twiddles(torch, m, count, sign):
+    """(count, 2) float32 exp(sign 2 pi i j/m), computed in float64."""
+    ang = sign * 2.0 * np.pi * np.arange(count) / m
+    return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], -1)
+                            .astype(np.float32)).cuda()
+
+
+def rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def sweep_fft_last(torch, lib, stream):
+    """The c2c at every n in 2..1024, both layouts, aligned and one value
+    into a larger buffer: forward against torch.fft (1e-5 of max |twin|),
+    round trip (1e-6 of max |x|).  Returns the failures."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     bad, worst = [], [0.0, 0.0]
     rows = 37
     for n in range(2, 1025):
-        tws = {}
-        for inv in (0, 1):
-            ang = (1 if inv else -1) * 2.0 * np.pi * np.arange(n) / n
-            tws[inv] = torch.from_numpy(np.stack(
-                [np.cos(ang), np.sin(ang)], -1).astype(np.float32)).cuda()
+        tws = {inv: twiddles(torch, n, n, 1 if inv else -1)
+               for inv in (0, 1)}
         for c64 in (False, True):
             for off in (0, 1):
                 if c64:
@@ -172,8 +242,7 @@ def sweep(torch, lib, stream):
                     ref = (torch.fft.ifft if inv else torch.fft.fft)(
                         x, dim=-1)
                     torch.cuda.synchronize()
-                    fwd = float((y - ref).abs().max() / ref.abs().max())
-                    trip = float((back - x).abs().max() / x.abs().max())
+                    fwd, trip = rel(y, ref), rel(back, x)
                     worst = [max(worst[0], fwd), max(worst[1], trip)]
                     if rc or rc2 or not fwd <= 1e-5 or not trip <= 1e-6:
                         bad.append(f"n={n} c64={c64} off={off} inv={inv}: "
@@ -182,9 +251,168 @@ def sweep(torch, lib, stream):
     print(f"sweep: n in 2..1024, 2 layouts x 2 offsets x 2 directions; "
           f"worst fwd {worst[0]:.3e}, round trip {worst[1]:.3e}; "
           f"{len(bad)} failures")
-    for b in bad[:20]:
-        print(f"sweep FAIL {b}")
     return bad
+
+
+def rfft_ref(torch, x, nf, ld, dbl, scale):
+    """numpy's rfft of the rows, the first nf columns, column nf - 1
+    doubled if dbl, times scale, zeros up to ld (complex)."""
+    X = torch.fft.rfft(x.double(), dim=-1)[..., :nf].clone()
+    if dbl:
+        X[..., -1] *= 2
+    X = X * scale
+    return torch.nn.functional.pad(X, (0, ld - nf)).to(torch.complex64)
+
+
+def sweep_planar_rfft(torch, lib, stream):
+    """The r2c at every even n in 4..2048: complex64 (nf = n/2 + 1) and
+    planar, the planar with nf = n/2 + 1 into width nf and with nf about
+    n/4 (doubled, scale 0.5) into width nf + 3; inputs and spectra aligned
+    and one value into larger buffers; forward against float64 rfft (1e-5
+    of max |X|), round trip through the library's c2r where nf = n/2 + 1
+    (1e-6 of max |x|; the c2r stores float2 pairs, so its real rows stay
+    aligned).  Returns the failures."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bad, worst = [], [0.0, 0.0]
+    rows = 37
+
+    def view(count, off, dtype=torch.float32):
+        buf = torch.empty(count + off, dtype=dtype, device="cuda")
+        return buf[off:]
+
+    for n in range(4, 2049, 2):
+        if n % 256 == 0:
+            print(f"sweep: n = {n}, {len(bad)} failures so far", flush=True)
+        h = n // 2
+        twf = (twiddles(torch, h, h, -1), twiddles(torch, n, h, -1))
+        twb = (twiddles(torch, h, h, 1), twiddles(torch, n, h, 1))
+        for off in (0, 1):
+            x = view(rows * n, off)
+            x.copy_(torch.randn(rows * n, generator=gen, device="cuda"))
+            x = x.view(rows, n)
+            cases = [("c64", h + 1, h + 1, 0, 1.0),
+                     ("planar", h + 1, h + 1, 0, 1.0),
+                     ("planar", max(2, h // 2), max(2, h // 2) + 3, 1, 0.5)]
+            for layout, nf, ld, dbl, scale in cases:
+                # the c2r stores float2 pairs: its output stays aligned
+                back = view(rows * n, 0).view(rows, n)
+                if layout == "c64":
+                    y = view(rows * ld, off, torch.complex64).view(rows, ld)
+                    rc = lib.rfft_c64_launch(
+                        x.data_ptr(), y.data_ptr(), twf[0].data_ptr(),
+                        twf[1].data_ptr(), rows, n, stream)
+                    rc2 = lib.irfft_c64_launch(
+                        y.data_ptr(), back.data_ptr(), twb[0].data_ptr(),
+                        twb[1].data_ptr(), rows, n, stream)
+                else:
+                    yr = view(rows * ld, off).view(rows, ld)
+                    yi = view(rows * ld, off).view(rows, ld)
+                    rc = lib.planar_rfft_launch(
+                        x.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                        twf[0].data_ptr(), twf[1].data_ptr(), rows, n, nf,
+                        ld, dbl, scale, stream)
+                    rc2 = lib.planar_irfft_launch(
+                        yr.data_ptr(), yi.data_ptr(), back.data_ptr(),
+                        twb[0].data_ptr(), twb[1].data_ptr(), rows, n, nf,
+                        ld, 1.0, stream)
+                    y = torch.complex(yr, yi)
+                ref = rfft_ref(torch, x, nf, ld, dbl, scale)
+                torch.cuda.synchronize()
+                fwd = rel(y, ref)
+                trip = rel(back, x) if nf == h + 1 else 0.0
+                worst = [max(worst[0], fwd), max(worst[1], trip)]
+                if rc or rc2 or not fwd <= 1e-5 or not trip <= 1e-6:
+                    bad.append(f"n={n} {layout} nf={nf} ld={ld} off={off}: "
+                               f"rc {rc}/{rc2} fwd {fwd:.3e} round trip "
+                               f"{trip:.3e}")
+    print(f"sweep: even n in 4..2048, c64 + planar (nf full and nf < "
+          f"full, width > nf) x 2 offsets; worst fwd {worst[0]:.3e}, "
+          f"round trip {worst[1]:.3e}; {len(bad)} failures")
+    return bad
+
+
+def cases_fft_last(torch, dev, gen, stream):
+    """(row, shape, call(lib), got() -> (kernel's, torch.fft's), torch.fft
+    call, bytes) at rows 10, 10 (n = 384) and 20."""
+    out = []
+    for row, rows, n, c64 in (("row 10", 65536, 256, False),
+                              ("row 10", 147456, 384, False),
+                              ("row 20", 65536, 129, True)):
+        t = twiddles(torch, n, n, -1)
+        if c64:
+            x = torch.complex(*(torch.randn((rows, n), generator=gen,
+                                            device=dev) for _ in range(2)))
+            y = torch.empty_like(x)
+
+            def call(lib, x=x, y=y, t=t, rows=rows, n=n):
+                return lib.fft_last_c64_launch(x.data_ptr(), y.data_ptr(),
+                                               t.data_ptr(), rows, n, 0,
+                                               stream)
+            out.append((row, f"complex64 ({rows}, {n})", call,
+                        lambda x=x, y=y: (y, torch.fft.fft(x, dim=-1)),
+                        lambda x=x: torch.fft.fft(x, dim=-1),
+                        2 * x.numel() * 8))
+        else:
+            xr, xi = (torch.randn((rows, n), generator=gen, device=dev)
+                      for _ in range(2))
+            yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+            z = torch.complex(xr, xi)
+
+            def call(lib, xr=xr, xi=xi, yr=yr, yi=yi, t=t, rows=rows, n=n):
+                return lib.fft_last_launch(xr.data_ptr(), xi.data_ptr(),
+                                           yr.data_ptr(), yi.data_ptr(),
+                                           t.data_ptr(), rows, n, 0, 1.0,
+                                           stream)
+            out.append((row, f"planar ({rows}, {n})", call,
+                        lambda yr=yr, yi=yi, z=z: (
+                            torch.complex(yr, yi), torch.fft.fft(z, dim=-1)),
+                        lambda z=z: torch.fft.fft(z, dim=-1),
+                        4 * xr.numel() * 4))
+    return out
+
+
+def cases_planar_rfft(torch, dev, gen, stream):
+    """The same at rows 21 and 8 and the 2x2 pencil's z stage."""
+    out = []
+    for row, rows, n, nf, ld, dbl, scale, c64 in (
+            ("row 21", 65536, 256, 129, 129, 0, 1.0, True),
+            ("row 8", 442368, 384, 129, 129, 1, 1 / 1.5 ** 3, False),
+            ("pencil z", 16384, 256, 129, 130, 0, 1.0, False)):
+        h = n // 2
+        th, tn = twiddles(torch, h, h, -1), twiddles(torch, n, h, -1)
+        x = torch.randn((rows, n), generator=gen, device=dev)
+        if c64:
+            y = torch.empty((rows, ld), dtype=torch.complex64, device=dev)
+
+            def call(lib, x=x, y=y, th=th, tn=tn, rows=rows, n=n):
+                return lib.rfft_c64_launch(x.data_ptr(), y.data_ptr(),
+                                           th.data_ptr(), tn.data_ptr(),
+                                           rows, n, stream)
+
+            def got(x=x, y=y):
+                return y, torch.fft.rfft(x, dim=-1)
+            shape = f"({rows}, {n}) -> complex64 ({rows}, {ld})"
+            nb = x.numel() * 4 + y.numel() * 8
+        else:
+            yr = torch.empty((rows, ld), device=dev)
+            yi = torch.empty_like(yr)
+
+            def call(lib, x=x, yr=yr, yi=yi, th=th, tn=tn, rows=rows, n=n,
+                     nf=nf, ld=ld, dbl=dbl, scale=scale):
+                return lib.planar_rfft_launch(
+                    x.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                    th.data_ptr(), tn.data_ptr(), rows, n, nf, ld, dbl,
+                    scale, stream)
+
+            def got(x=x, yr=yr, yi=yi, nf=nf, ld=ld, dbl=dbl, scale=scale):
+                return (torch.complex(yr, yi),
+                        rfft_ref(torch, x, nf, ld, dbl, scale))
+            shape = (f"({rows}, {n}) -> planar ({rows}, {ld}) nf={nf}"
+                     f"{' doubled' if dbl else ''} scale {scale:.6g}")
+            nb = x.numel() * 4 + 2 * yr.numel() * 4
+        out.append((row, shape, call, got,
+                    lambda x=x: torch.fft.rfft(x, dim=-1), nb))
+    return out
 
 
 def median_ms(torch, fn, iters, warmup=3):
@@ -203,6 +431,7 @@ def median_ms(torch, fn, iters, warmup=3):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="fft_last")
     ap.add_argument("--src", action="append",
                     help="a csrc directory (repeatable; default the "
                          "package's)")
@@ -221,65 +450,32 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
     print(f"card: {smi[0] if smi else 'nvidia-smi gave nothing'}")
-    libs = build(srcs, args.edit)
+    libs = build(args.kernel, srcs, args.edit)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.sweep and sweep(torch, libs[(list(libs)[-1][0], "full")],
-                            stream):
-        raise SystemExit("the sweep failed")
-
-    def tw(n):
-        ang = -2.0 * np.pi * np.arange(n) / n
-        return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], -1)
-                                .astype(np.float32)).to(dev)
+    sweep, cases = {"fft_last": (sweep_fft_last, cases_fft_last),
+                    "planar_rfft": (sweep_planar_rfft,
+                                    cases_planar_rfft)}[args.kernel]
+    if args.sweep:
+        bad = sweep(torch, libs[(list(libs)[-1][0], "full")], stream)
+        for b in bad[:20]:
+            print(f"sweep FAIL {b}")
+        if bad:
+            raise SystemExit("the sweep failed")
 
     results = []
-    for row, rows, n, c64 in (("row 10", 65536, 256, False),
-                              ("row 10", 147456, 384, False),
-                              ("row 20", 65536, 129, True)):
-        t = tw(n)
-        if c64:
-            x = torch.complex(*(torch.randn((rows, n), generator=gen,
-                                            device=dev) for _ in range(2)))
-            y = torch.empty_like(x)
-            nb = 2 * x.numel() * 8
-
-            def call(lib, x=x, y=y, t=t, rows=rows, n=n):
-                rc = lib.fft_last_c64_launch(x.data_ptr(), y.data_ptr(),
-                                             t.data_ptr(), rows, n, 0,
-                                             stream)
-                if rc:
-                    raise SystemExit(f"launch failed: CUDA error {rc}")
-
-            def got(x=x, y=y):
-                return y, torch.fft.fft(x, dim=-1)
-            lib_fn = (lambda x=x: torch.fft.fft(x, dim=-1))
-        else:
-            xr, xi = (torch.randn((rows, n), generator=gen, device=dev)
-                      for _ in range(2))
-            yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-            z = torch.complex(xr, xi)
-            nb = 4 * xr.numel() * 4
-
-            def call(lib, xr=xr, xi=xi, yr=yr, yi=yi, t=t, rows=rows, n=n):
-                rc = lib.fft_last_launch(xr.data_ptr(), xi.data_ptr(),
-                                         yr.data_ptr(), yi.data_ptr(),
-                                         t.data_ptr(), rows, n, 0, 1.0,
-                                         stream)
-                if rc:
-                    raise SystemExit(f"launch failed: CUDA error {rc}")
-
-            def got(yr=yr, yi=yi, z=z):
-                return torch.complex(yr, yi), torch.fft.fft(z, dim=-1)
-            lib_fn = (lambda z=z: torch.fft.fft(z, dim=-1))
-        shape = f"{'complex64' if c64 else 'planar'} ({rows}, {n})"
+    for row, shape, call, got, lib_fn, nb in cases(torch, dev, gen, stream):
+        def launch(lib):
+            rc = call(lib)
+            if rc:
+                raise SystemExit(f"launch failed: CUDA error {rc}")
         for key, lib in libs.items():
             if key[1] == "full":
-                call(lib)
+                launch(lib)
                 a, b = got()
                 torch.cuda.synchronize()
-                err = float((a - b).abs().max() / b.abs().max())
+                err = rel(a, b)
                 print(f"check {row} {shape} {key[0]} full: rel err "
                       f"{err:.3e}")
                 if err > 1e-5:
@@ -289,7 +485,7 @@ def main():
         times = {k: [] for k in libs}
         lib_ms = [median_ms(torch, lib_fn, args.iters)]
         for key, lib in order + order[::-1]:
-            times[key].append(median_ms(torch, lambda: call(lib),
+            times[key].append(median_ms(torch, lambda: launch(lib),
                                         args.iters))
         lib_ms.append(median_ms(torch, lib_fn, args.iters))
         for key in libs:
@@ -303,7 +499,7 @@ def main():
               f"{lib_ms[1]:.4f} ms")
         results.append(dict(row=row, shape=shape, src="torch.fft",
                             variant="library", ms=lib_ms, bytes=nb))
-    out = ROOT / "chiprun_out" / "ab_fft_last.json"
+    out = ROOT / "chiprun_out" / f"ab_{args.kernel}.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(dict(card=smi, results=results), indent=1))
     print(json.dumps(dict(card=smi[0] if smi else None, n=len(results))))
