@@ -143,7 +143,7 @@ CSRC = "mpifft4py_tpu_torch/ops/csrc"
 KERNELS = {
     # name: (source, Pallas kernel(s) it replaces, with their row in PERF.md)
     "fft_axis": (f"{CSRC}/fft_axis.cu", f"{PALLAS}:330 (row 1)"),
-    "packed_rfft_last": (f"{CSRC}/packed_rfft.cu", f"{PALLAS}:636 (row 4)"),
+    "packed_rfft_last": (f"{CSRC}/planar_rfft.cu", f"{PALLAS}:636 (row 4)"),
     "packed_irfft_last": (f"{CSRC}/packed_rfft.cu", f"{PALLAS}:849 (row 5)"),
     "curl_ifft_x": (f"{CSRC}/curl_ifft_x.cu", f"{PALLAS}:1378 (row 11)"),
     "curl_ifft_x_biot_savart": (f"{CSRC}/curl_ifft_x.cu",
@@ -171,7 +171,7 @@ KERNELS = {
     # row 10 at the 3/2-rule C2C's 384-point rows (launches: that path's)
     "fft_last_384": (f"{CSRC}/fft_last.cu",
                      f"{PALLAS}:531 (row 10, n = 384 with scale)"),
-    "packed_rfft_last_zdif": (f"{CSRC}/packed_rfft.cu",
+    "packed_rfft_last_zdif": (f"{CSRC}/planar_rfft.cu",
                               "mpifft4py_tpu/ops/pallas_zdif.py:387 (row 17)"),
     "packed_irfft_last_zdif": (f"{CSRC}/packed_rfft.cu",
                                "mpifft4py_tpu/ops/pallas_zdif.py:415 "
@@ -535,6 +535,55 @@ def kernel_phase(torch, p3, zd, dn, rng):
                     dn.irfft_last(X, n), x, 1e-6)
     del x, y, X, out
 
+    # rows 4 and 17 on the same persistent r2c: inputs 1-3 values into a
+    # larger buffer (bulk-copy heads and tails off the 16-byte grid), stacks
+    # that end in a partial tile (32 rows a tile at n = 256, 16 at 512, 10
+    # at 768, 8 at 1024, 4 at 2042), the DIF order; each against its twin
+    # and in a round trip through the packed c2r; then spectra 1-3 values
+    # into their buffers through the launchers (the wrappers allocate
+    # aligned ones) and a base off the 4-byte grid, refused
+    for shape, off, dif in (((4096, 256), 1, False), ((201, 256), 2, False),
+                            ((3, 67, 256), 3, False), ((33, 2042), 1, False),
+                            ((7, 16), 3, False), ((201, 512), 1, True),
+                            ((3, 25, 768), 2, True), ((1000, 1024), 3, True),
+                            ((9, 1024), 0, True)):
+        n = shape[-1]
+        x = cu((int(np.prod(shape)) + off,))[off:].view(shape)
+        name = "packed_rfft_last" + ("_zdif" if dif else "")
+        fwd = zd.rfft_last_zdif if dif else p3.rfft_last_packed
+        twin = zd.rfft_last_zdif_ref if dif else p3.rfft_last_packed_ref
+        what = f"{shape} {off} value(s) in"
+        y = fwd(x)
+        compare(name, what, y, twin(x))
+        compare(name, what + " round trip",
+                p3.irfft_last_packed(*y, n, dif=dif), x, 1e-6)
+    from mpifft4py_tpu_torch.ops import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    for rows, n, off, dif in ((77, 256, 1, False), (77, 1024, 2, False),
+                              (9, 2042, 3, False), (77, 1024, 2, True),
+                              (25, 768, 3, True)):
+        h = n // 2
+        x = cu((rows * n + off,))[off:].view(rows, n)
+        yr, yi = (torch.zeros(rows * h + off, device="cuda")[off:]
+                  .view(rows, h) for _ in "ri")
+        fn = lib.packed_rfft_zdif_launch if dif else lib.packed_rfft_launch
+        tws = (p3._twiddles(h, h, -1, x.device).data_ptr(),
+               p3._twiddles(n, h, -1, x.device).data_ptr())
+        rc = fn(x.data_ptr(), yr.data_ptr(), yi.data_ptr(), *tws, rows, n,
+                stream)
+        check(rc == 0, f"kernel packed r2c launcher ({rows}, {n}) dif={dif}, "
+                       f"spectrum {off} value(s) in: rc {rc}")
+        compare("packed_rfft_last" + ("_zdif" if dif else ""),
+                f"launcher ({rows}, {n}), spectrum {off} value(s) in",
+                (yr, yi), (zd.rfft_last_zdif_ref if dif
+                           else p3.rfft_last_packed_ref)(x))
+        rc = fn(x.data_ptr() + 2, yr.data_ptr(), yi.data_ptr(), *tws, rows, n,
+                stream)
+        check(rc != 0, f"kernel packed r2c launcher ({rows}, {n}) dif={dif} "
+                       f"refuses a base off the 4-byte grid: rc {rc}")
+    del x, y, yr, yi
+
     # rows 17-18, the DIF lane order of the packed 2D layout, at 1e-6: the
     # whole 1024^2 field (1024 rows of n) and the (4, 1024, n/2) stack of
     # NS2D's batched inverse, row 17 also against row 4 permuted, and a
@@ -716,6 +765,24 @@ def kernel_phase(torch, p3, zd, dn, rng):
               f"torch.fft {'rfft2' if 'fwd' in label else 'irfft2'} over "
               f"the last two axes {l1:.4f} / {l2:.4f} ms", flush=True)
     del u, yr, yi, yc
+    # row 16 (the pencil's WIDE nonlinear leg: rows 12/15's z kernel on one
+    # rank's (3, 128, 128, 256) of the 2x2 pencil at 256^3), no torch.fft
+    # call computes it
+    aw, bw = cu((3, 128, 128, 256)), cu((3, 128, 128, 256))
+    yw = p3.cross_rfft_z(aw, bw)
+    compare("cross_rfft_z", "row 16 (3, 128, 128, 256)", yw,
+            p3.cross_rfft_z_ref(aw, bw))
+    b_ms, b_by = bound(nbytes(aw, bw, *yw),
+                       fft_flops(aw.numel(), 256, True))
+    k1, p1 = (median_ms(torch, lambda: p3.cross_rfft_z(aw, bw)),
+              median_ms(torch, lambda: p3.cross_rfft_z_ref(aw, bw)))
+    p2, k2 = (median_ms(torch, lambda: p3.cross_rfft_z_ref(aw, bw)),
+              median_ms(torch, lambda: p3.cross_rfft_z(aw, bw)))
+    print(f"time row 16 cross_rfft_z (3, 128, 128, 256), a rank of the WIDE "
+          f"leg: kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.4f} / "
+          f"{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes(aw, bw, *yw) / 1e6:.1f} MB)", flush=True)
+    del aw, bw, yw
     return out
 
 
@@ -874,8 +941,8 @@ def envelope_phase(torch, p3, dn):
     spectrum is whole, in a round trip through the kernels (1e-6
     relative); the worst of each printed; then times at the lengths of
     SWEEP_TIMED_* (radix 5, radix 7, a 127-point stage; at n = 2042 a
-    1021-point one: direct in the packed r2c, pair-sum in the planar and
-    dense r2c) beside the powers of two next to them."""
+    1021-point pair-sum one in the packed, planar and dense r2c, one
+    kernel) beside the powers of two next to them."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
     def cu(shape):

@@ -5,9 +5,10 @@
 // of z_t = x[2t] + i*x[2t+1]; the untangle turns its spectrum Z into the
 // packed X (h columns, column 0 holding X[0] + i*X[n/2]):
 //   X[k] = (Z[k] + conj Z[h-k])/2 + e^{-2 pi i k/n} (Z[k] - conj Z[h-k])/(2i).
-// Shared by packed_rfft.cu (the plain r2c), planar_rfft.cu (the r2c/c2r of
-// the 3/2 rule) and cross_rfft_z.cu (the cross product with the r2c behind
-// it).
+// Shared by planar_rfft.cu (the r2c of every layout: planar, complex64 and
+// packed, rows 8, 21, 4 and 17, by a paired form of the untangle, and the
+// c2r of the 3/2 rule), packed_rfft.cu (the packed c2r) and cross_rfft_z.cu
+// (the cross product with the r2c behind it).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,19 +36,11 @@ __device__ __forceinline__ float2 untangle(const float2* s, int pitch,
 // The DIF lane order of the reference's pallas_zdif.py (n = r*128, r in
 // {4, 6, 8}, h = n/2 = 64 r): k = r*t + b (t < 64) sits at lane off[b] + t,
 // slot p = lane / 128 holding the 64-lane pieces [b = p | b = r - p] and
-// slot 0 holding [0 | r/2].  Closed forms, no table (mirrored by
-// mpifft4py_tpu_torch/ops/zdif.py zdif_k / zdif_lane).
+// slot 0 holding [0 | r/2].  zdif_lane(k, n) is the lane of column k, a
+// closed form, no table (mirrored by mpifft4py_tpu_torch/ops/zdif.py
+// zdif_lane, whose inverse is zdif_k there).
 __host__ __device__ inline bool zdif_ok(int n) {
   return n % 256 == 0 && n / 128 >= 4 && n / 128 <= 8;
-}
-
-__device__ __forceinline__ int zdif_k(int lane, int n) {
-  const int r = n / 128;
-  const int p = lane / 128;
-  const int half = (lane / 64) & 1;
-  const int t = lane % 64;
-  const int b = p == 0 ? (half ? r / 2 : 0) : (half ? r - p : p);
-  return r * t + b;
 }
 
 __device__ __forceinline__ int zdif_lane(int k, int n) {

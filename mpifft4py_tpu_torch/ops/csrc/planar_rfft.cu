@@ -1,12 +1,12 @@
 // Planar r2c / c2r along the last (contiguous) axis, with the 3/2-rule
-// truncation and zero-pad folded in.
+// truncation and zero-pad folded in, and the packed r2c (rows 4 and 17).
 //
 // Replaces the Pallas kernels mpifft4py_tpu/ops/pallas_fft3d.py:
 // rfft_last_planar (_rfft_kernel over _rdft_cs) and irfft_last_planar
 // (_irfft_kernel over _irdft_cs), which contract each row with dense
 // (n x nfp) DFT matrices on the MXU, nfp = nf rounded up to 128 lanes.
 // Here a spectrum has exactly nf columns (no lane padding), and the
-// transform is packed_rfft.cu's half-length algorithm: one h-point FFT of
+// transform is the packed r2c's half-length algorithm: one h-point FFT of
 // z_t = x[2t] + i*x[2t+1] per row (h = n/2) and the untangle of
 // packed_z.cuh.  Only the ends differ:
 //
@@ -23,8 +23,9 @@
 //   weight is 1), and column h rides plane 0 only when nf_in = h + 1;
 //   scale/n at the store.
 //
-// The template parameter kC64 picks the spectrum's global layout: false,
-// the planar pair; true, interleaved complex64, for the dense tier's
+// The template parameter kC64 of the c2r (and the output mode Out of the
+// r2c) picks the spectrum's global layout: false, the planar pair; true,
+// interleaved complex64, for the dense tier's
 // mpifft4py_tpu/ops/pallas_fft.py: rfft_last (_rfft_kernel), row 21, numpy
 // rfft into nf = n/2 + 1 columns (here with scale 1), and irfft_last
 // (_irfft_kernel), row 22, numpy irfft from nf_in = n/2 + 1 columns.  Those
@@ -38,20 +39,32 @@
 // at every n, so at odd n it differs from numpy's irfft; these kernels
 // compute numpy's irfft.)
 //
-// Like packed_rfft.cu it is bound by HBM bytes: 4 bytes a real sample and
-// 8 a spectral column (about 2.5 n log2 n flops a row is far below the
-// 67 TFLOP/s of FP32).  The c2r and the odd-n kernels take one tile of RB
-// rows a block (RB * m <= kTile), load, transform and store it in turn,
-// and mask the last block of a ragged stack.  The r2c (planar_rfft_kernel,
-// rows 8 and 21) is fft_last.cu's persistent design (bulk_ring.cuh) with
-// two row lengths, n floats in and ld values out:
+// The r2c also computes the packed r2c, rows 4 and 17
+// (mpifft4py_tpu/ops/pallas_fft3d.py rfft_last_packed, _rfft_kernel over
+// _packed_rdft_cs, and mpifft4py_tpu/ops/pallas_zdif.py rfft_last_zdif,
+// _zdif_fwd_kernel): the output modes Out::kPacked and Out::kPackedDif
+// store h = n/2 columns, nf = ld = h, with column 0 holding the rider
+// X[0] + i*X[h]; kPackedDif puts column k at lane packedz::zdif_lane(k, n)
+// (the DIF order of the packed 2D layout, n = r*128, r in {4, 6, 8}).  A
+// row is staged whole in the slot before its bulk store, so the
+// permutation costs no scattered global stores.
+//
+// Like the c2r of packed_rfft.cu it is bound by HBM bytes: 4 bytes a real
+// sample and 8 a spectral column (about 2.5 n log2 n flops a row is far
+// below the 67 TFLOP/s of FP32).  The c2r and the odd-n kernels take one
+// tile of RB rows a block (RB * m <= kTile), load, transform and store it
+// in turn, and mask the last block of a ragged stack.  The r2c
+// (planar_rfft_kernel, rows 8, 21, 4 and 17) is fft_last.cu's persistent
+// design (bulk_ring.cuh) with two row lengths, n floats in and ld values
+// out:
 //
 // - a tile is RB whole rows: one run of RB * n input floats and one run of
-//   RB * ld output values a plane (planar: two planes of floats; kC64: one
-//   of float2); RB is the most rows with h * RB <= kTile whose input and
-//   output runs are multiples of 16 bytes (so every tile of an aligned
-//   tensor goes wholly by bulk copy) and whose two slots and work tile fit
-//   in a block's shared memory; a slot holds the larger of the two runs;
+//   RB * ld output values a plane (planar and packed: two planes of floats;
+//   kC64: one of float2); RB is the most rows with h * RB <= kTile whose
+//   input and output runs are multiples of 16 bytes (so every tile of an
+//   aligned tensor goes wholly by bulk copy) and whose two slots and work
+//   tile fit in a block's shared memory; a slot holds the larger of the two
+//   runs;
 // - a persistent grid walks the tiles; one thread brings tile it + 1 into
 //   the other slot with a bulk copy (an mbarrier a slot) while the block
 //   works on tile it;
@@ -81,6 +94,10 @@ using fftblock::Plan;
 namespace {
 
 using namespace bulkring;
+
+// The r2c's output: the planar pair, interleaved complex64, the packed
+// planar pair (h columns, the rider in column 0), the same in DIF lane order
+enum class Out { kPlanar, kC64, kPacked, kPackedDif };
 
 template <bool kC64>
 __device__ __forceinline__ float2 get(const float* __restrict__ xr,
@@ -112,8 +129,10 @@ __device__ __forceinline__ void untangle_pair(float2 Z, float2 Zf, float2 w,
 // thread 0 waits until the bulk store of tile it - 1 has read slot
 // (it + 1) % 2 and loads tile it + 1 into it, while the block transforms
 // tile it, stages its spectrum row-major in slot it % 2 (now free) and
-// thread 0 stores it.  kC64: yr is the interleaved output, yi unused.
-template <bool kC64, bool kMixed>
+// thread 0 stores it.  Out::kC64: yr is the interleaved output, yi
+// unused.  The packed modes differ only in column 0 (and kPackedDif in
+// where each column goes), guarded by if constexpr.
+template <Out kOut, bool kMixed>
 __global__ void
 __launch_bounds__(fftblock::kTile / fftblock::kRowEPT<kMixed>, 2)
 planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
@@ -121,6 +140,8 @@ planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
                    const float2* __restrict__ tw_n, Plan plan, int n,
                    long long rows, int RB, int nf, int ld, int dbl,
                    float scale, int SL) {
+  constexpr bool kC64 = kOut == Out::kC64;
+  constexpr bool kPacked = kOut == Out::kPacked || kOut == Out::kPackedDif;
   extern __shared__ __align__(16) float smem[];
   constexpr int kB = kC64 ? 8 : 4;
   const int h = n / 2;
@@ -200,6 +221,7 @@ planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
     const Run o0 = run_of<kB>(yr, w0, lout);
     const Run o1 = kC64 ? o0 : run_of<kB>(yi, w0, lout);
     const auto put = [&](int rho, int c, float re, float im) {
+      if constexpr (kOut == Out::kPackedDif) c = packedz::zdif_lane(c, n);
       const int e = rho * ld + c;
       if (kC64) {
         if (in_bulk(o0, e))
@@ -222,8 +244,12 @@ planar_rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
       const int k = e - rho * kmax;
       const float2 Z = s[k * pitch + rho];
       if (k == 0) {  // X[0] = Z.x + Z.y, X[h] = Z.x - Z.y (nf >= 2)
-        put(rho, 0, (Z.x + Z.y) * scale, 0.f);
-        if (nf == h + 1) put(rho, h, (Z.x - Z.y) * scale, 0.f);
+        if constexpr (kPacked) {
+          put(rho, 0, (Z.x + Z.y) * scale, (Z.x - Z.y) * scale);
+        } else {
+          put(rho, 0, (Z.x + Z.y) * scale, 0.f);
+          if (nf == h + 1) put(rho, h, (Z.x - Z.y) * scale, 0.f);
+        }
         continue;
       }
       const float2 Zf = s[(h - k) * pitch + rho];
@@ -409,7 +435,7 @@ RfftTile rfft_tile(int n, int ld, int kB, int max_smem) {
   return best;
 }
 
-template <bool kC64, bool kMixed>
+template <Out kOut, bool kMixed>
 int launch_rfft_instance(const float* x, float* yr, float* yi,
                          const float2* tw_h, const float2* tw_n,
                          const Plan& plan, long long rows, int n, int nf,
@@ -422,18 +448,18 @@ int launch_rfft_instance(const float* x, float* yr, float* yi,
            &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
           cudaSuccess)
     return static_cast<int>(err);
-  const RfftTile g = rfft_tile(n, ld, kC64 ? 8 : 4, max_smem);
+  const RfftTile g = rfft_tile(n, ld, kOut == Out::kC64 ? 8 : 4, max_smem);
   if (!g.RB) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = (n / 2 * g.RB + kE * 32 - 1) / (kE * 32) * 32;
   const long long tiles = (rows + g.RB - 1) / g.RB;
-  return launch_persistent(planar_rfft_kernel<kC64, kMixed>, tiles, threads,
+  return launch_persistent(planar_rfft_kernel<kOut, kMixed>, tiles, threads,
                            g.smem, stream, x, yr, yi, tw_h, tw_n, plan, n,
                            rows, g.RB, nf, ld, dbl, scale, g.SL);
 }
 
-// A base misaligned for its value type (x, planar yr/yi not 4-byte
-// aligned; kC64 y not 8-byte aligned) is refused.
-template <bool kC64>
+// A base misaligned for its value type (x, planar or packed yr/yi not
+// 4-byte aligned; kC64 y not 8-byte aligned) is refused.
+template <Out kOut>
 int launch_rfft(const float* x, float* yr, float* yi, const void* tw_h,
                 const void* tw_n, long long rows, int n, int nf, int ld,
                 int dbl, float scale, void* stream) {
@@ -443,16 +469,16 @@ int launch_rfft(const float* x, float* yr, float* yi, const void* tw_h,
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(yi)) %
           4 ||
-      reinterpret_cast<uintptr_t>(yr) % (kC64 ? 8 : 4))
+      reinterpret_cast<uintptr_t>(yr) % (kOut == Out::kC64 ? 8 : 4))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const auto* th = static_cast<const float2*>(tw_h);
   const auto* tn = static_cast<const float2*>(tw_n);
   auto st = static_cast<cudaStream_t>(stream);
   return fftblock::mixed_plan(plan)
-             ? launch_rfft_instance<kC64, true>(x, yr, yi, th, tn, plan,
+             ? launch_rfft_instance<kOut, true>(x, yr, yi, th, tn, plan,
                                                 rows, n, nf, ld, dbl, scale,
                                                 st)
-             : launch_rfft_instance<kC64, false>(x, yr, yi, th, tn, plan,
+             : launch_rfft_instance<kOut, false>(x, yr, yi, th, tn, plan,
                                                  rows, n, nf, ld, dbl, scale,
                                                  st);
 }
@@ -484,8 +510,8 @@ extern "C" int planar_rfft_launch(const float* x, float* yr, float* yi,
                                   const void* tw_h, const void* tw_n,
                                   long long rows, int n, int nf, int ld,
                                   int dbl, float scale, void* stream) {
-  return launch_rfft<false>(x, yr, yi, tw_h, tw_n, rows, n, nf, ld, dbl,
-                            scale, stream);
+  return launch_rfft<Out::kPlanar>(x, yr, yi, tw_h, tw_n, rows, n, nf, ld,
+                                   dbl, scale, stream);
 }
 
 // Inverse: the first nf_in columns of (xr, xi) (rows, ld) -> y (rows, n)
@@ -504,8 +530,29 @@ extern "C" int planar_irfft_launch(const float* xr, const float* xi, float* y,
 extern "C" int rfft_c64_launch(const float* x, void* y, const void* tw_h,
                                const void* tw_n, long long rows, int n,
                                void* stream) {
-  return launch_rfft<true>(x, static_cast<float*>(y), nullptr, tw_h, tw_n,
-                           rows, n, n / 2 + 1, n / 2 + 1, 0, 1.f, stream);
+  return launch_rfft<Out::kC64>(x, static_cast<float*>(y), nullptr, tw_h,
+                                tw_n, rows, n, n / 2 + 1, n / 2 + 1, 0, 1.f,
+                                stream);
+}
+
+// Row 4: x (rows, n) real -> (yr, yi) (rows, n/2), the packed layout
+// (column 0 holds X[0] + i*X[n/2]), even n <= 2048; tw_h, tw_n as for
+// planar_rfft_launch.
+extern "C" int packed_rfft_launch(const float* x, float* yr, float* yi,
+                                  const void* tw_h, const void* tw_n,
+                                  long long rows, int n, void* stream) {
+  return launch_rfft<Out::kPacked>(x, yr, yi, tw_h, tw_n, rows, n, n / 2,
+                                   n / 2, 0, 1.f, stream);
+}
+
+// Row 17: the same in DIF lane order (column k at lane zdif_lane(k, n));
+// n must be r*128 with r in {4, 6, 8}.
+extern "C" int packed_rfft_zdif_launch(const float* x, float* yr, float* yi,
+                                       const void* tw_h, const void* tw_n,
+                                       long long rows, int n, void* stream) {
+  if (!packedz::zdif_ok(n)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rfft<Out::kPackedDif>(x, yr, yi, tw_h, tw_n, rows, n, n / 2,
+                                      n / 2, 0, 1.f, stream);
 }
 
 // Row 22 at even n <= 2048: x (rows, n/2 + 1) complex64 -> y (rows, n)

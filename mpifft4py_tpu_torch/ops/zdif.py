@@ -11,10 +11,12 @@ port emits it too.
 
 On the card the split buys nothing: the port's packed r2c/c2r is already a
 half-length Stockham FFT of O(n log n) work.  Rows 17–18 are therefore the
-kernels of ``csrc/packed_rfft.cu`` with the lane order as a template
-parameter: the forward stores lane l from k = ``zdif_perm(n)[l]``, the
-inverse reads k and its partner h − k from their lanes; both maps are the
-closed forms ``zdif_k``/``zdif_lane`` below, which the CUDA source repeats.
+packed r2c and c2r with the lane order as a template parameter: the
+forward (``csrc/planar_rfft.cu``'s persistent r2c in its packed-DIF output
+mode) stages column k of a row at lane ``zdif_lane(k, n)`` before the row's
+bulk store, the inverse (``csrc/packed_rfft.cu``) reads k and its partner
+h − k from their lanes; ``zdif_lane`` below is the closed form the CUDA
+source repeats (``zdif_k`` is its inverse).
 
 ``MPIFFT4PY_TPU_ZDIF`` (the reference's force/off knob) is not ported: the
 gate is the shape predicate ``zdif_ok`` alone.

@@ -50,17 +50,18 @@ NU2D, DT2D = 0.001, 0.001             # chip_smoke.py's NS2D step
 EXTRA = {"MHD3D": {"eta": NU}, "Boussinesq3D": {"kappa": NU}}
 HAND_WRITTEN = ("curl_ifft_x_kernel", "product_rfft_z_kernel",
                 "fft_x_epilogue_kernel", "packed_irfft_kernel",
-                "packed_rfft_kernel", "fft_axis_kernel",
-                "planar_rfft_kernel", "planar_irfft_kernel", "fft_last_kernel")
+                "fft_axis_kernel", "planar_rfft_kernel",
+                "planar_irfft_kernel", "fft_last_kernel")
 
 
 def group(name):
     """A kernel's group: each hand-written kernel (a template variant with
-    its arguments, e.g. ``fft_x_epilogue_kernel<1, false>``), ``cat``,
+    its arguments, e.g. ``fft_x_epilogue_kernel<1, false>`` or
+    ``planar_rfft_kernel<(<unnamed>::Out)2, false>``), ``cat``,
     reductions, copies, or other elementwise work."""
     for key in HAND_WRITTEN:
         if key in name:
-            m = re.search(re.escape(key) + r"(<[^>]*>)?", name)
+            m = re.search(re.escape(key) + r"(<(?:[^<>]|<[^<>]*>)*>)?", name)
             return m.group(0)
     low = name.lower()
     if "cat" in low:

@@ -371,6 +371,52 @@ def test_planar_rfft_unaligned_and_ragged(cuda, shape, off, nf, width,
                     lambda a: dn.irfft_last(a, n), (x,))
 
 
+# rows 4 and 17 on the same persistent r2c (planar_rfft_kernel's packed
+# modes): inputs 1-3 values into a larger buffer, stacks that end in a
+# partial tile (32 rows a tile at n = 256, 16 at 512, 10 at 768, 8 at 1024,
+# 4 at 2042), the DIF order; each against its twin and in a round trip
+# through the packed c2r
+@pytest.mark.parametrize("shape,off,dif", [
+    ((4096, 256), 1, False), ((201, 256), 2, False), ((3, 67, 256), 3, False),
+    ((33, 2042), 1, False), ((7, 16), 3, False), ((201, 512), 1, True),
+    ((3, 25, 768), 2, True), ((1000, 1024), 3, True), ((9, 1024), 0, True)])
+def test_packed_rfft_unaligned_and_ragged(cuda, shape, off, dif):
+    n = shape[-1]
+    x = _f32((int(np.prod(shape)) + off,), cuda, 5)[off:].view(shape)
+    name = "packed_rfft_last" + ("_zdif" if dif else "")
+    fwd = zd.rfft_last_zdif if dif else p3.rfft_last_packed
+    before = p3.LAUNCHES[name]
+    got = fwd(x)
+    assert p3.LAUNCHES[name] == before + 1
+    _close(got, (zd.rfft_last_zdif_ref if dif else p3.rfft_last_packed_ref)(x))
+    _round_trip(fwd, lambda a, b: p3.irfft_last_packed(a, b, n, dif=dif),
+                (x,))
+
+
+# the packed launchers with spectra 1-3 values into their buffers (the
+# wrappers allocate aligned ones), and a base off the 4-byte grid, refused
+@pytest.mark.parametrize("rows,n,off,dif", [
+    (77, 256, 1, False), (77, 1024, 2, False), (9, 2042, 3, False),
+    (77, 1024, 2, True), (25, 768, 3, True)])
+def test_packed_rfft_launcher_unaligned_spectrum(cuda, rows, n, off, dif):
+    from mpifft4py_tpu_torch.ops import _build
+    h = n // 2
+    x = _view(n, rows, off, cuda, 3)
+    yr, yi = (torch.zeros(rows * h + off, device=cuda)[off:].view(rows, h)
+              for _ in "ri")
+    lib = _build.load()
+    fn = lib.packed_rfft_zdif_launch if dif else lib.packed_rfft_launch
+    tws = (p3._twiddles(h, h, -1, cuda).data_ptr(),
+           p3._twiddles(n, h, -1, cuda).data_ptr())
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert fn(x.data_ptr(), yr.data_ptr(), yi.data_ptr(), *tws, rows, n,
+              stream) == 0
+    _close((yr, yi), (zd.rfft_last_zdif_ref if dif
+                      else p3.rfft_last_packed_ref)(x))
+    assert fn(x.data_ptr() + 2, yr.data_ptr(), yi.data_ptr(), *tws, rows, n,
+              stream) != 0
+
+
 def test_c2c_on_the_card_matches_float64(cuda):
     N = (32, 48, 64)
     C = C2C(np.array(N), np.array([2 * np.pi] * 3), None, "single",

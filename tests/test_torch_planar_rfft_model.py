@@ -1,5 +1,6 @@
-"""A float32 numpy model of ``planar_rfft.cu``'s r2c (rows 8 and 21): its
-paired untangle and its split of the rows into tiles, runs and slots.
+"""A float32 numpy model of ``planar_rfft.cu``'s r2c (rows 8, 21, 4 and
+17): its paired untangle in every output mode and its split of the rows
+into tiles, runs and slots.
 
 The CUDA kernel (``planar_rfft_kernel`` in
 ``mpifft4py_tpu_torch/ops/csrc/planar_rfft.cu``) runs only on the card.  Two
@@ -19,7 +20,14 @@ parts of it are arithmetic that a CPU can hold to account:
   writes of each output column, and is held against numpy's float64
   ``rfft`` (1e-5 of max |X|, the kernel's tolerance on the card) at every
   even n in 4..2048, with nf = n/2 + 1 and with nf < n/2 + 1 into a width
-  > nf.
+  > nf.  The packed modes (rows 4 and 17, nf = ld = h) differ only in
+  column 0, which carries the rider X[0] + i·X[h], and, in DIF order, in
+  where column k goes: lane ``zdif_lane(k, n)`` (packed_z.cuh's closed
+  form, repeated here).  They are held against numpy's float64 ``rfft`` in
+  the packed layout at every even n in 16..2048 (natural order) and at n =
+  512, 768, 1024 (DIF order, unpermuted with the port's ``zdif_iperm``),
+  and at n = 256 and 512 against the JAX package's ``rfft_last_packed``
+  and ``pallas_zdif.rfft_last_zdif`` (Pallas in interpret mode).
 - **The tile split.**  ``rfft_tile`` picks RB rows a tile and SL floats a
   slot from (n, ld, the output's value width); ``bulkring::run_of`` splits
   each tile's input run (RB·n floats) and output runs (RB·ld values a
@@ -35,9 +43,14 @@ Run on the CPU (seconds):
     python -m pytest tests/test_torch_planar_rfft_model.py -q
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.experimental.pallas import tpu as pltpu
 
+from mpifft4py_tpu.ops import pallas_fft3d as jp3
+from mpifft4py_tpu.ops import pallas_zdif as jzd
+from mpifft4py_tpu_torch.ops import zdif as tzd
 from test_torch_packed import _one_torch_thread  # noqa: F401
 from test_torch_prime_stage import make_plan, model_fft
 
@@ -61,9 +74,20 @@ def spectrum(x):
     return np.fft.fft(z.astype(np.complex128), axis=1).astype(np.complex64)
 
 
-def untangle_model(Z, n, nf, ld, dbl, scale):
+def zdif_lane(k, n):
+    """packed_z.cuh's ``zdif_lane``: the lane of column k in DIF order."""
+    r = n // 128
+    b, t = k % r, k // r
+    off = np.where(b == r // 2, 64,
+                   128 * np.minimum(b, r - b) + np.where(b > r // 2, 64, 0))
+    return off + t
+
+
+def untangle_model(Z, n, nf, ld, dbl, scale, mode="planar"):
     """The kernel's untangle of Z (rows, h) into (rows, ld) columns, float32
-    as the kernel computes it, and how often each column was written."""
+    as the kernel computes it, and how often each column was written.
+    ``mode``: "planar" (the planar and complex64 outputs), "packed" (the
+    rider in column 0) or "dif" (packed, column k at lane zdif_lane(k))."""
     h = n // 2
     rows = Z.shape[0]
     ang = -2.0 * np.pi * np.arange(h) / n
@@ -74,13 +98,18 @@ def untangle_model(Z, n, nf, ld, dbl, scale):
     writes = np.zeros(ld, int)
 
     def put(c, re, im):
+        if mode == "dif":
+            c = zdif_lane(np.asarray(c), n)
         yr[:, c], yi[:, c] = re, im
         np.add.at(writes, c, 1)
 
     Zr, Zi = Z.real.astype(F32), Z.imag.astype(F32)
-    put(0, (Zr[:, 0] + Zi[:, 0]) * scale, F32(0))       # item k = 0
-    if nf == h + 1:
-        put(h, (Zr[:, 0] - Zi[:, 0]) * scale, F32(0))
+    if mode == "planar":                                 # item k = 0
+        put(0, (Zr[:, 0] + Zi[:, 0]) * scale, F32(0))
+        if nf == h + 1:
+            put(h, (Zr[:, 0] - Zi[:, 0]) * scale, F32(0))
+    else:                                                # the rider
+        put(0, (Zr[:, 0] + Zi[:, 0]) * scale, (Zr[:, 0] - Zi[:, 0]) * scale)
     k = np.arange(1, min(h // 2 + 1, nf))              # the other items
     zr, zi, fr, fi = Zr[:, k], Zi[:, k], Zr[:, h - k], Zi[:, h - k]
     half = F32(0.5)
@@ -128,6 +157,57 @@ def test_paired_untangle_matches_float64(n):
         err = float(np.abs(got - ref).max() / np.abs(ref).max())
         assert err <= 1e-5, f"n={n} nf={nf} ld={ld}: rel err {err:.3e}"
         assert (got[:, nf:] == 0).all()
+
+
+def packed_reference(x):
+    """numpy's float64 rfft in the packed layout: h columns, column 0
+    X[0] + i·X[h]."""
+    h = x.shape[1] // 2
+    X = np.fft.rfft(x.astype(np.float64), axis=1)
+    P = X[:, :h].copy()
+    P[:, 0] = X[:, 0].real + 1j * X[:, h].real
+    return P
+
+
+def packed_model(x, dif=False):
+    """The packed r2c of the kernel (nf = ld = h, scale 1), its output in
+    lane order, with each lane's write count."""
+    n = x.shape[1]
+    return untangle_model(spectrum(x), n, n // 2, n // 2, 0, 1.0,
+                          "dif" if dif else "packed")
+
+
+@pytest.mark.parametrize("dif,n", [(False, n) for n in range(16, 2049, 2)]
+                         + [(True, n) for n in (512, 768, 1024)])
+def test_packed_untangle_matches_float64(dif, n):
+    rng = np.random.default_rng(n + dif)
+    x = rng.standard_normal((3, n)).astype(F32)
+    got, writes = packed_model(x, dif)
+    assert (writes == 1).all(), np.flatnonzero(writes != 1)
+    if dif:
+        got = got[:, tzd.zdif_iperm(n)]
+    ref = packed_reference(x)
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    assert err <= 1e-5, f"n={n} dif={dif}: rel err {err:.3e}"
+
+
+@pytest.mark.parametrize("n,dif", [(256, False), (512, True)])
+def test_packed_model_matches_pallas(n, dif):
+    """The model (rows 4 and 17) against the JAX package's Pallas kernels
+    in interpret mode on 8 seeded rows, 1e-5 of max |reference|; the
+    model's lane map is the reference's DIF order."""
+    x = np.random.default_rng(7).standard_normal((8, n)).astype(F32)
+    got, _ = packed_model(x, dif)
+    with pltpu.force_tpu_interpret_mode():
+        fn = jzd.rfft_last_zdif if dif else jp3.rfft_last_packed
+        yr, yi = (np.asarray(a) for a in fn(jnp.asarray(x)))
+    ref = yr + 1j * yi
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    assert err <= 1e-5, f"n={n} dif={dif}: rel err {err:.3e}"
+    if dif:
+        h = n // 2
+        np.testing.assert_array_equal(zdif_lane(np.arange(h), n),
+                                      np.asarray(jzd.zdif_iperm(n)))
 
 
 # -- the tile split ---------------------------------------------------------
@@ -199,11 +279,13 @@ def walk(rows, n, ld, kB, base_in, base_out):
 
 
 # (n, ld, kB): rows 21 and 8, the pencil's z stage into widths 130 and 132,
-# the envelope's ends, an h with a prime stage and widths far above nf
+# the envelope's ends, an h with a prime stage and widths far above nf;
+# the packed rows (ld = h): row 4, the packed envelope's ends, row 17
 TILE_CASES = [(256, 129, 8), (384, 129, 4), (256, 130, 4), (256, 132, 4),
               (2048, 1025, 8), (2048, 1025, 4), (2042, 1022, 4), (4, 3, 8),
               (4, 300, 4), (6, 4, 4), (16, 9, 8), (130, 66, 4),
-              (1000, 5000, 4), (768, 385, 8)]
+              (1000, 5000, 4), (768, 385, 8), (256, 128, 4), (16, 8, 4),
+              (1024, 512, 4), (2042, 1021, 4)]
 
 
 @pytest.mark.parametrize("mis", [0, 1, 2, 3])
@@ -242,11 +324,13 @@ def test_aligned_tiles_go_wholly_by_bulk_copy(n, ld, kB):
 
 
 def test_main_path_tiles():
-    """Rows 21 and 8 and the pencil's z stage: RB = 32, 20 and 32 rows a
-    tile (the most with h·RB <= kTile and aligned runs; row 8's planar ld =
-    129 needs a multiple of 4), two blocks a multiprocessor."""
+    """Rows 21 and 8, the pencil's z stage, rows 4 and 17: RB = 32, 20, 32,
+    32 and 8 rows a tile (the most with h·RB <= kTile and aligned runs; row
+    8's planar ld = 129 needs a multiple of 4), two blocks a
+    multiprocessor."""
     for n, ld, kB, RB_want in ((256, 129, 8, 32), (384, 129, 4, 20),
-                               (256, 130, 4, 32)):
+                               (256, 130, 4, 32), (256, 128, 4, 32),
+                               (1024, 512, 4, 8)):
         RB, SL, smem = rfft_tile(n, ld, kB)
         assert RB == RB_want
         assert (RB * n * 4) % 16 == 0 and (RB * ld * kB) % 16 == 0

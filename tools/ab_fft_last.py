@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
 """A/B of the persistent row kernels: the last-axis c2c (``ops/csrc/
-fft_last.cu``, rows 10 and 20) and the even-n r2c (``ops/csrc/
-planar_rfft.cu``'s ``planar_rfft_kernel``, rows 8 and 21).
+fft_last.cu``, rows 10 and 20), the even-n r2c (``ops/csrc/
+planar_rfft.cu``'s ``planar_rfft_kernel``, rows 8 and 21) and the packed
+r2c (rows 4 and 17: ``packed_rfft_launch``/``packed_rfft_zdif_launch``,
+wherever the source tree defines them).
 
-    python3 tools/ab_fft_last.py [--kernel fft_last|planar_rfft]
+    python3 tools/ab_fft_last.py [--kernel fft_last|planar_rfft|packed_rfft]
                                  [--src DIR[:FLAGS] ...] [--iters 30]
                                  [--edit 'LABEL:REGEX=>REPL' ...] [--sweep]
 
 For each ``--src`` directory (a copy of ``mpifft4py_tpu_torch/ops/csrc``;
 default the package's own; after a colon, extra nvcc flags separated by
-commas, e.g. ``csrc:-lineinfo``), builds two libraries from the kernel's
-source (``fft_last.cu`` or ``planar_rfft.cu``, with every ``*.cuh`` of the
-directory beside it) with one ``nvcc`` each, all started together, under
+commas, e.g. ``csrc:-lineinfo``), builds libraries from the kernel's
+sources (``fft_last.cu``, ``planar_rfft.cu``, or ``packed_rfft.cu`` and
+``planar_rfft.cu`` together, with every ``*.cuh`` of the directory beside
+them) with one ``nvcc`` each, all started together, under
 ``build/ab_<kernel>/``:
 
-- ``full``: the source as it is;
-- ``copy``: the same source with the kernel's ``fftblock::block_fft...``
-  call cut out (and, for ``planar_rfft``, its untangle replaced by the
+- ``full``: the sources as they are;
+- ``copy``: the same sources with the kernel's ``fftblock::block_fft...``
+  call cut out (and, for the r2c kernels, its untangle replaced by the
   spectrum's own values), so the kernel only moves each tile in (global ->
   shared) and back out (shared -> global), with no FFT stages;
+- ``nount`` (``packed_rfft`` only): the untangle cut, the stages kept;
 - one more library for each ``--edit`` of the last ``--src``: its source
   and headers with every match of REGEX replaced by REPL (several pairs
   separated by ``;;``), e.g. a kernel without its global stores, to see
@@ -35,7 +39,12 @@ call on the same data:
   the dense 256^3 chain's r2c), row 8 (float32 (442368, 384) -> planar
   (442368, 129), nf = 129 with the column doubled and scale 1/1.5^3, the
   3/2 rule's z stage) and the 2x2 pencil's z stage (float32 (16384, 256)
-  -> planar (16384, 130), zeros in column 129).
+  -> planar (16384, 130), zeros in column 129);
+- ``packed_rfft``: row 4 (float32 (65536, 256) -> packed planar (65536,
+  128), the 256^3 transform's z stage), row 17 (float32 (1024, 1024)
+  -> packed planar (1024, 512) in DIF lane order, NS2D 1024^2's field)
+  and row 4 at n = 640 ((409600, 640), ``serialFFT`` 640^3's z stage, a
+  mixed-radix plan).
 
 Each time is the median of ``--iters`` CUDA-event timings; the rate counts
 each input byte read once and each output byte written once.  Each ``full``
@@ -46,7 +55,10 @@ views that start one value into a larger buffer (bases off the bulk
 copies' 16-byte grid): ``fft_last`` at every n in 2..1024; ``planar_rfft``
 at every even n in 4..2048, the planar layout also with nf < n/2 + 1 (the
 column nf - 1 doubled, scaled) into a width > nf (its round trip through
-the same library's c2r where nf = n/2 + 1).  Prints the card's name and
+the same library's c2r where nf = n/2 + 1); ``packed_rfft`` at every even
+n in 4..2048 in natural order and at n = 512, 768, 1024 in DIF order,
+input and spectrum aligned and one value in, round trips through the
+library's packed c2r.  Prints the card's name and
 power limit, one line a (shape, variant), and writes the numbers to
 ``chiprun_out/ab_<kernel>.json``.  Needs a CUDA card and ``nvcc``.
 """
@@ -68,30 +80,45 @@ from mpifft4py_tpu_torch.ops import _build  # noqa: E402
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-# kernel: its source, its entry points' argtypes, and the copy-only cuts:
-# groups of (REGEX, REPL) alternatives, each group matching exactly once
+# the r2c kernels' copy-only cuts: the block_fft... call (the first after
+# the kernel's name), and the untangle (one spectral value a column, or the
+# pair)
+STAGES_R2C = [(r"(packed_rfft_kernel\(.*?)fftblock::block_fft\w*<[^;{]*\);",
+               r"\1"),
+              (r"(planar_rfft_kernel\(.*?)fftblock::block_fft\w*<[^;{]*\);",
+               r"\1")]
+UNTANGLE_R2C = [(r"packedz::untangle\(s, pitch, rho, k, h, tw_n\)",
+                 "s[k * pitch + rho]"),
+                (r"untangle_pair\(Z, Zf, [^;]*\);", "Xk = Z; Xf = Zf;")]
+_PACKED = (_P,) * 5 + (_L, _I, _P)
+# kernel: its sources, its entry points' argtypes, and its variants beside
+# `full`: groups of (REGEX, REPL) alternatives, the first alternative that
+# matches in the sources applied, each group matching exactly once
 KERNELS = {
     "fft_last": dict(
-        source="fft_last.cu",
+        sources=("fft_last.cu",),
         sigs={"fft_last_launch": (_P,) * 5 + (_L, _I, _I, _F, _P),
               "fft_last_c64_launch": (_P, _P, _P, _L, _I, _I, _P)},
         # the block_fft... call: a statement, or the condition of the store
         # pass that runs when the last stage did not store
-        copy=[[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
-               (r"!fftblock::block_fft\w*<[^;{]*\)\)", "true)")]]),
+        variants={"copy": [[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
+                            (r"!fftblock::block_fft\w*<[^;{]*\)\)",
+                             "true)")]]}),
     "planar_rfft": dict(
-        source="planar_rfft.cu",
+        sources=("planar_rfft.cu",),
         sigs={"planar_rfft_launch": (_P,) * 5 + (_L, _I, _I, _I, _I, _F, _P),
               "planar_irfft_launch": (_P,) * 5 + (_L, _I, _I, _I, _F, _P),
               "rfft_c64_launch": (_P,) * 4 + (_L, _I, _P),
               "irfft_c64_launch": (_P,) * 4 + (_L, _I, _P)},
-        # the r2c kernel's block_fft... call (the first after its name),
-        # and its untangle (one spectral value a column, or the pair)
-        copy=[[(r"(planar_rfft_kernel\(.*?)fftblock::block_fft\w*<[^;{]*\);",
-                r"\1")],
-              [(r"packedz::untangle\(s, pitch, rho, k, h, tw_n\)",
-                "s[k * pitch + rho]"),
-               (r"untangle_pair\(Z, Zf, [^;]*\);", "Xk = Z; Xf = Zf;")]]),
+        variants={"copy": [STAGES_R2C[1:], UNTANGLE_R2C]}),
+    "packed_rfft": dict(
+        sources=("packed_rfft.cu", "planar_rfft.cu"),
+        sigs={"packed_rfft_launch": _PACKED,
+              "packed_irfft_launch": _PACKED,
+              "packed_rfft_zdif_launch": _PACKED,
+              "packed_irfft_zdif_launch": _PACKED},
+        variants={"copy": [STAGES_R2C, UNTANGLE_R2C],
+                  "nount": [UNTANGLE_R2C]}),
 }
 
 
@@ -103,17 +130,23 @@ def substitute(text, edit, name):
     return text
 
 
-def copy_only(kernel, src, text):
-    for group in KERNELS[kernel]["copy"]:
+def cut(src, files, groups):
+    """``files`` ({name: text}) with each group of (REGEX, REPL)
+    alternatives applied: the first alternative that matches, which must
+    match exactly once in all of them."""
+    files = dict(files)
+    for group in groups:
         for pat, repl in group:
-            cut, hits = re.subn(pat, repl, text, flags=re.S)
-            if hits:
+            hits = {f: len(re.findall(pat, t, flags=re.S))
+                    for f, t in files.items()}
+            if sum(hits.values()):
                 break
-        if hits != 1:
-            raise SystemExit(f"{src}: the copy-only cut {group[0][0]!r} "
-                             f"matched {hits} times, expected 1")
-        text = cut
-    return text
+        if sum(hits.values()) != 1:
+            raise SystemExit(f"{src}: the cut {group[0][0]!r} matched "
+                             f"{sum(hits.values())} times, expected 1")
+        f = next(f for f, n in hits.items() if n)
+        files[f] = re.sub(pat, repl, files[f], flags=re.S)
+    return files
 
 
 def build(kernel, srcs, edits=()):
@@ -122,16 +155,17 @@ def build(kernel, srcs, edits=()):
     out = ROOT / "build" / f"ab_{kernel}"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
-    main = KERNELS[kernel]["source"]
+    mains = KERNELS[kernel]["sources"]
     jobs = []
     for i, spec in enumerate(srcs):
         src, _, extra = spec.partition(":")
         extra = [f for f in extra.split(",") if f]
         files = {p.name: p.read_text()
-                 for p in [Path(src) / main, *sorted(Path(src).glob("*.cuh"))]}
-        variants = [("full", files),
-                    ("copy", {**files, main: copy_only(kernel, src,
-                                                       files[main])})]
+                 for p in [*(Path(src) / m for m in mains),
+                           *sorted(Path(src).glob("*.cuh"))]}
+        variants = [("full", files)] + [
+            (name, cut(src, files, groups))
+            for name, groups in KERNELS[kernel]["variants"].items()]
         if i == len(srcs) - 1:
             for edit in edits:
                 name, _, rule = edit.partition(":")
@@ -145,7 +179,7 @@ def build(kernel, srcs, edits=()):
                 (d / f).write_text(t)
             so = d / "lib.so"
             cmd = [nvcc, *_build.FLAGS, *extra, "-shared", "-I", str(d),
-                   "-o", str(so), str(d / main)]
+                   "-o", str(so), *(str(d / m) for m in mains)]
             jobs.append(((label, variant), so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -164,14 +198,15 @@ def build(kernel, srcs, edits=()):
 
 
 def print_ptxas(key, log):
-    """One line a kernel instance: ptxas's registers and spill bytes."""
+    """One line a kernel instance: ptxas's registers and spill bytes (an
+    instance's template arguments as numbers: a bool, or an enum's value)."""
     name, spill = "?", ""
     for line in log.splitlines():
         m = re.search(r"entry function .*?\d([a-z][a-z_]*_kernel)I"
-                      r"((?:Lb[01]E)+)", line)
+                      r"((?:L(?:b|N[^E]*E)\d+E)+)", line)
         if m:
             name = m.group(1) + "<" + ", ".join(
-                re.findall(r"Lb([01])", m.group(2))) + ">"
+                re.findall(r"L(?:b|N[^E]*E)(\d+)E", m.group(2))) + ">"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -331,6 +366,72 @@ def sweep_planar_rfft(torch, lib, stream):
     return bad
 
 
+def packed_ref(torch, x, perm=None):
+    """numpy's rfft of the rows in the packed layout (h columns, column 0
+    X[0] + i X[h]; complex), its columns in ``perm`` order if given."""
+    h = x.shape[-1] // 2
+    X = torch.fft.rfft(x.double(), dim=-1)
+    P = X[..., :h].clone()
+    P[..., 0] = torch.complex(X[..., 0].real, X[..., h].real)
+    if perm is not None:
+        P = P[..., torch.as_tensor(perm, device=x.device)]
+    return P.to(torch.complex64)
+
+
+def zdif_perm(n):
+    from mpifft4py_tpu_torch.ops import zdif
+    return zdif.zdif_perm(n)
+
+
+def sweep_packed_rfft(torch, lib, stream):
+    """The packed r2c at every even n in 4..2048 (natural order) and at n
+    = 512, 768, 1024 (DIF order); input and spectrum aligned and one value
+    into larger buffers; forward against float64 rfft (1e-5 of max |X|),
+    round trip through the library's packed c2r (1e-6 of max |x|; its real
+    rows stay aligned).  Returns the failures."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bad, worst = [], [0.0, 0.0]
+    rows = 37
+
+    def view(count, off):
+        return torch.empty(count + off, device="cuda")[off:]
+
+    cases = [(n, False) for n in range(4, 2049, 2)] + [
+        (n, True) for n in (512, 768, 1024)]
+    for n, dif in cases:
+        if n % 256 == 0 and not dif:
+            print(f"sweep: n = {n}, {len(bad)} failures so far", flush=True)
+        h = n // 2
+        twf = (twiddles(torch, h, h, -1), twiddles(torch, n, h, -1))
+        twb = (twiddles(torch, h, h, 1), twiddles(torch, n, h, 1))
+        fwd_fn = lib.packed_rfft_zdif_launch if dif else lib.packed_rfft_launch
+        bwd_fn = (lib.packed_irfft_zdif_launch if dif
+                  else lib.packed_irfft_launch)
+        for off in (0, 1):
+            x = view(rows * n, off)
+            x.copy_(torch.randn(rows * n, generator=gen, device="cuda"))
+            x = x.view(rows, n)
+            yr, yi = (view(rows * h, off).view(rows, h) for _ in "ri")
+            back = view(rows * n, 0).view(rows, n)
+            rc = fwd_fn(x.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                        twf[0].data_ptr(), twf[1].data_ptr(), rows, n,
+                        stream)
+            rc2 = bwd_fn(yr.data_ptr(), yi.data_ptr(), back.data_ptr(),
+                         twb[0].data_ptr(), twb[1].data_ptr(), rows, n,
+                         stream)
+            ref = packed_ref(torch, x, zdif_perm(n) if dif else None)
+            torch.cuda.synchronize()
+            fwd, trip = rel(torch.complex(yr, yi), ref), rel(back, x)
+            worst = [max(worst[0], fwd), max(worst[1], trip)]
+            if rc or rc2 or not fwd <= 1e-5 or not trip <= 1e-6:
+                bad.append(f"n={n} dif={dif} off={off}: rc {rc}/{rc2} fwd "
+                           f"{fwd:.3e} round trip {trip:.3e}")
+    print(f"sweep: even n in 4..2048 natural, 512/768/1024 DIF, x 2 "
+          f"offsets; worst fwd {worst[0]:.3e}, round trip {worst[1]:.3e}; "
+          f"{len(bad)} failures")
+    return bad
+
+
 def cases_fft_last(torch, dev, gen, stream):
     """(row, shape, call(lib), got() -> (kernel's, torch.fft's), torch.fft
     call, bytes) at rows 10, 10 (n = 384) and 20."""
@@ -415,6 +516,36 @@ def cases_planar_rfft(torch, dev, gen, stream):
     return out
 
 
+def cases_packed_rfft(torch, dev, gen, stream):
+    """The same at rows 4 (natural order) and 17 (DIF order), and row 4 at
+    `serialFFT` 640^3's z stage (h = 320 = 2^6 * 5, the mixed instance)."""
+    out = []
+    for row, rows, n, dif in (("row 4", 65536, 256, False),
+                              ("row 17", 1024, 1024, True),
+                              ("row 4", 409600, 640, False)):
+        h = n // 2
+        th, tn = twiddles(torch, h, h, -1), twiddles(torch, n, h, -1)
+        x = torch.randn((rows, n), generator=gen, device=dev)
+        yr = torch.empty((rows, h), device=dev)
+        yi = torch.empty_like(yr)
+
+        def call(lib, x=x, yr=yr, yi=yi, th=th, tn=tn, rows=rows, n=n,
+                 dif=dif):
+            fn = lib.packed_rfft_zdif_launch if dif else lib.packed_rfft_launch
+            return fn(x.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                      th.data_ptr(), tn.data_ptr(), rows, n, stream)
+
+        def got(x=x, yr=yr, yi=yi, n=n, dif=dif):
+            return (torch.complex(yr, yi),
+                    packed_ref(torch, x, zdif_perm(n) if dif else None))
+        shape = (f"({rows}, {n}) -> packed planar ({rows}, {h})"
+                 f"{' DIF order' if dif else ''}")
+        out.append((row, shape, call, got,
+                    lambda x=x: torch.fft.rfft(x, dim=-1),
+                    x.numel() * 4 + 2 * yr.numel() * 4))
+    return out
+
+
 def median_ms(torch, fn, iters, warmup=3):
     for _ in range(warmup):
         fn()
@@ -455,8 +586,9 @@ def main():
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     sweep, cases = {"fft_last": (sweep_fft_last, cases_fft_last),
-                    "planar_rfft": (sweep_planar_rfft,
-                                    cases_planar_rfft)}[args.kernel]
+                    "planar_rfft": (sweep_planar_rfft, cases_planar_rfft),
+                    "packed_rfft": (sweep_packed_rfft,
+                                    cases_packed_rfft)}[args.kernel]
     if args.sweep:
         bad = sweep(torch, libs[(list(libs)[-1][0], "full")], stream)
         for b in bad[:20]:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Compare the SASS of the port's kernels between two source trees.
+r"""Compare the SASS of the port's kernels between two source trees.
 
-    python3 tools/sass_diff.py DIR_A DIR_B
+    python3 tools/sass_diff.py [--rename 'REGEX=>REPL' ...] DIR_A DIR_B
 
 DIR_A and DIR_B are copies of ``mpifft4py_tpu_torch/ops/csrc`` (e.g. a
 parent commit unpacked with ``git archive`` under ``build/parent/`` and the
@@ -10,10 +10,18 @@ the package's nvcc flags (``-c``, one nvcc a source, all started together,
 under ``build/sass_diff/``), disassembles each object with ``cuobjdump
 -sass``, splits it by function and prints, for each source, how many
 functions are identical, and names those that differ or exist in one tree
-only.  Writes the lists to ``chiprun_out/sass_diff.json``.  Needs ``nvcc``
-(the machine with the card).
+only.  Each ``--rename`` rewrites the mangled names of both trees before
+they are compared, so a function whose template arguments changed type
+(e.g. a bool that became an enum, which also shifts the mangled
+substitution indices of its parameters) is matched with its old instance:
+``--rename 'planar_rfft_kernelILb([01])E=>planar_rfft_kernel<\1>'
+--rename 'planar_rfft_kernelIL[^E]*E(\d)E=>planar_rfft_kernel<\1>'
+--rename '(planar_rfft_kernel<\d>Lb[01]EEEvPKfPf)S4_PK6float2S7_=>\1S3_PK6float2S6_'``.
+Writes the lists to ``chiprun_out/sass_diff.json``.  Needs ``nvcc`` (the
+machine with the card).
 """
 
+import argparse
 import itertools
 import json
 import os
@@ -40,14 +48,17 @@ def cuobjdump():
 ANON = re.compile(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}(?=\d)")
 
 
-def functions(sass):
+def functions(sass, renames=()):
     """{mangled name: its SASS lines}, anonymous namespaces' path hashes
-    replaced by one name and runs of blanks by one."""
+    replaced by one name, each (REGEX, REPL) of ``renames`` applied to the
+    names, and runs of blanks by one."""
     out, name = {}, None
     for line in ANON.sub("_GLOBAL__N_", sass).splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
+            for pat, repl in renames:
+                name = re.sub(pat, repl, name)
             out[name] = []
         elif name is not None:
             # the listing pads its columns to the file's longest line
@@ -56,9 +67,13 @@ def functions(sass):
 
 
 def main():
-    if len(sys.argv) != 3:
-        raise SystemExit(__doc__)
-    dirs = [Path(d).resolve() for d in sys.argv[1:]]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("dirs", nargs=2, metavar="DIR")
+    ap.add_argument("--rename", action="append", default=[],
+                    help="REGEX=>REPL, applied to the names of both trees")
+    args = ap.parse_args()
+    renames = [r.split("=>", 1) for r in args.rename]
+    dirs = [Path(d).resolve() for d in args.dirs]
     out = ROOT / "build" / "sass_diff"
     nvcc = _build._nvcc()
     jobs = []
@@ -77,7 +92,7 @@ def main():
             raise SystemExit(f"nvcc failed for {dirs[i]}/{src}:\n{log}")
         sass[(i, src)] = functions(subprocess.run(
             [cuobjdump(), "-sass", str(obj)], capture_output=True, text=True,
-            check=True).stdout)
+            check=True).stdout, renames)
     report = {}
     for src in _build.SOURCES:
         a, b = sass[(0, src)], sass[(1, src)]
