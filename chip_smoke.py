@@ -20,7 +20,10 @@ Phases, each checked; any failed check makes the exit code non-zero:
    into a buffer, on 201 rows and ragged 3-stacks, truncated to nf = 129
    on band-limited rows, and into widths 130 and 132 through ``out=`` (a
    pair that starts inside its buffer), each against its twin and in a
-   round trip through the c2r (1e-6);
+   round trip through the c2r (1e-6); rows 1 and 19 (``fft_axis.cu``) on
+   inputs and ``out=`` views 1-3 values into larger buffers, with post =
+   129, 130 and 3 and pre > 1, each against its twin and in a round trip
+   (1e-6);
 3. transforms: ``slab.R2C`` at 256³ and 512³ against float64
    ``torch.fft.rfftn``, the round trip, the 2/3-rule forward, and the
    round-trip time beside ``torch.fft``'s;
@@ -346,6 +349,35 @@ def kernel_phase(torch, p3, zd, dn, rng):
         compare("fft_axis", f"n=384 (4, 384, 64) inverse={inv}",
                 p3.fft_axis_planar(xr, xi, 1, inv),
                 p3.fft_axis_planar_ref(xr, xi, 1, inv))
+
+    # fft_axis.cu's edges (rows 1 and 19): inputs and out= views 1-3 values
+    # into larger buffers (row segments off the bulk copies' 16-byte grid,
+    # each plane off by another amount), post = 129 (row 19's 1032-byte
+    # complex64 rows, a last tile of one column), 130 and 3, pre > 1, tiles
+    # one sector wide at n = 384 and 1024
+    for pre, n, post, off in ((256, 256, 129, 1), (3, 1024, 130, 2),
+                              (2, 384, 3, 3)):
+        shape, cnt = (pre, n, post), pre * n * post
+
+        def off_view(o, shape=shape, cnt=cnt):
+            return cu((cnt + o,))[o:].view(shape)
+        xr, xi = off_view(off), off_view((off + 1) % 4)
+        out = (off_view((off + 2) % 4), off_view((off + 3) % 4))
+        xc = torch.complex(cu((cnt + off,)),
+                           cu((cnt + off,)))[off:].view(shape)
+        what = f"{shape} axis 1, {off} values in"
+        for inv in (False, True):
+            y = p3.fft_axis_planar(xr, xi, 1, inv, out=out)
+            compare("fft_axis", f"{what}, out= views, inverse={inv}", y,
+                    p3.fft_axis_planar_ref(xr, xi, 1, inv))
+            compare("fft_axis", f"{what} inverse={inv} round trip",
+                    p3.fft_axis_planar(*y, 1, not inv), (xr, xi), 1e-6)
+            y = dn.fft_axis(xc, 1, inv)
+            compare("dense_fft_axis", f"{what} inverse={inv}", y,
+                    dn.fft_axis_ref(xc, 1, inv))
+            compare("dense_fft_axis", f"{what} inverse={inv} round trip",
+                    dn.fft_axis(y, 1, not inv), xc, 1e-6)
+    del out, xc, y
 
     # the packed NS3D step's kernels at its 256^3 shapes
     pk = (3, 256, 256, 128)

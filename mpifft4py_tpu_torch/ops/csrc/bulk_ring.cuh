@@ -1,7 +1,7 @@
 // The bulk-copy tile ring of the persistent row kernels (fft_last.cu,
 // planar_rfft.cu): 1-D bulk copies (TMA, cp.async.bulk) between global
 // memory and a slot in shared memory, an mbarrier a slot, and the launch of
-// a persistent grid.
+// a persistent grid (the mbarriers and the launch also serve fft_axis.cu).
 //
 // A tile is one contiguous run of values in each of one or two planes.
 // Bulk copies need 16-byte aligned addresses and sizes: where a run does
@@ -28,6 +28,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
                :: "r"(smem_u32(bar)) : "memory");
+}
+
+// An mbarrier whose phase completes after `count` arrivals (and its bytes).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
 // The one arrival of a phase, with the bytes its copies will deliver.

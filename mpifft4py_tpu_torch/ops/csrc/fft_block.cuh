@@ -16,8 +16,9 @@
 //   over the tile, in registers, before the barrier; so it needs no second
 //   buffer, and its shared memory is the register stages'.  The sum is
 //   compensated (Kahan), so its float32 error does not grow with p.
-//   fft_last.cu runs the pair-sum form instead (stage_pairsum, in
-//   block_fft_fast): ~1/4 of the arithmetic an output.
+//   fft_last.cu, planar_rfft.cu's r2c and fft_axis.cu run the pair-sum
+//   form instead (stage_pairsum, in block_fft_fast): ~1/4 of the
+//   arithmetic an output.
 // The reference's c2c envelope (supported_c2c: n = r*m, m <= 128 the
 // largest divisor, r <= 8) has prime factors up to 127; the half-length
 // h = n/2 <= 1024 of its r2c envelope (even n <= 2048) up to 1021.
@@ -564,13 +565,86 @@ __device__ __forceinline__ void stage_fast_last(const float2* s, int n,
   }
 }
 
+// The last stage (Ns * R == n) of a column tile (fft_axis.cu): stage_fast's
+// order, threads take the column c fastest, so neighbouring threads read
+// and write neighbouring columns; its outputs go through out(c, k, y_k) as
+// in stage_fast_last.  No barrier: the caller synchronises before the tile
+// is written again.
+template <int R, int kE, typename Out>
+__device__ __forceinline__ void stage_fast_cols(const float2* s, int n,
+                                                const FastDiv& ncol,
+                                                int pitch,
+                                                const float2* __restrict__ tw,
+                                                float sign, Out out) {
+  constexpr int kMaxB = (kE + R - 1) / R;
+  const int Ns = n / R;
+  const int nb = Ns * ncol.d;
+  float2 v[kMaxB][R];
+  int c[kMaxB], k[kMaxB];
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    const int b = threadIdx.x + i * blockDim.x;
+    k[i] = ncol.div(b);
+    c[i] = b < nb ? b - k[i] * ncol.d : -1;
+    if (c[i] >= 0) {
+#pragma unroll
+      for (int t = 0; t < R; ++t)
+        v[i][t] = s[(k[i] + t * Ns) * pitch + c[i]];
+      if (!kBatch<R>) {
+        if (Ns > 1) {
+#pragma unroll
+          for (int t = 1; t < R; ++t)
+            v[i][t] = cmul(v[i][t], __ldg(&tw[t * k[i]]));
+        }
+        dft<R>(v[i], sign);
+#pragma unroll
+        for (int t = 0; t < R; ++t) out(c[i], k[i] + t * Ns, v[i][t]);
+      }
+    }
+  }
+  if (kBatch<R>) {
+    if (Ns > 1) {
+#pragma unroll
+      for (int i = 0; i < kMaxB; ++i) {
+        if (c[i] >= 0) {
+#pragma unroll
+          for (int t = 1; t < R; ++t)
+            v[i][t] = cmul(v[i][t], __ldg(&tw[t * k[i]]));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) {
+      if (c[i] >= 0) {
+        dft<R>(v[i], sign);
+#pragma unroll
+        for (int t = 0; t < R; ++t) out(c[i], k[i] + t * Ns, v[i][t]);
+      }
+    }
+  }
+}
+
+// The last register stage of block_fft_fast: stage_fast_last (j fastest,
+// the row kernels) or, with kCols, stage_fast_cols (c fastest).
+template <int R, int kE, bool kCols, typename Out>
+__device__ __forceinline__ void stage_last(const float2* s, int n,
+                                           const FastDiv& ncol, int pitch,
+                                           const float2* __restrict__ tw,
+                                           float sign, Out out) {
+  if constexpr (kCols)
+    stage_fast_cols<R, kE>(s, n, ncol, pitch, tw, sign, out);
+  else
+    stage_fast_last<R, kE>(s, n, ncol.d, pitch, tw, sign, out);
+}
+
 // Values a thread holds in a stage of the row kernels (fft_last.cu,
-// planar_rfft.cu's r2c): 16 (256 threads a tile of kTile, at most 128
-// registers) for the plans of radix 2, 3 and 4; 8 (512 threads, at most 64
-// registers) for the mixed instance, whose radix-5/7 and pair-sum stages
-// spilled 784 bytes a thread at 16.  On an H100 the other choice was 41%
-// slower at row 10's n = 256 and 27% slower at row 20's n = 129
-// (tools/ab_fft_last.py).  Two blocks share a multiprocessor either way.
+// planar_rfft.cu's r2c) and of fft_axis.cu: 16 (256 threads a tile of
+// kTile, at most 128 registers) for the plans of radix 2, 3 and 4; 8 (512
+// threads, at most 64 registers) for the mixed instance, whose radix-5/7
+// and pair-sum stages spilled 784 bytes a thread at 16.  On an H100 the
+// other choice was 41% slower at row 10's n = 256 and 27% slower at row
+// 20's n = 129 (tools/ab_fft_last.py).  Two blocks share a multiprocessor
+// either way.
 template <bool kMixed>
 constexpr int kRowEPT = kMixed ? 8 : 16;
 
@@ -578,9 +652,10 @@ constexpr int kRowEPT = kMixed ? 8 : 16;
 // (5 and 7 if kMixed) as stage_fast, each prime factor p >= 11 as
 // stage_pairsum (kMixed only).  ncol.d < 2^16 columns, n * ncol < 2^16;
 // the block has at least n * ncol / kE threads (kE values a thread).  A
-// last register stage writes through `out` (stage_fast_last) and the call
-// returns true; else the spectrum is left in the tile.
-template <bool kMixed, int kE, typename Out>
+// last register stage writes through `out` (stage_fast_last, or with kCols
+// stage_fast_cols) and the call returns true; else the spectrum is left in
+// the tile.
+template <bool kMixed, int kE, bool kCols = false, typename Out>
 __device__ inline bool block_fft_fast(float2* s, int n, const FastDiv& ncol,
                                       int pitch, const Plan& plan,
                                       const float2* __restrict__ tw,
@@ -609,15 +684,15 @@ __device__ inline bool block_fft_fast(float2* s, int n, const FastDiv& ncol,
   }
   if (!fused) return false;
   if (last == 4) {
-    stage_fast_last<4, kE>(s, n, ncol.d, pitch, tw, sign, out);
+    stage_last<4, kE, kCols>(s, n, ncol, pitch, tw, sign, out);
   } else if (last == 2) {
-    stage_fast_last<2, kE>(s, n, ncol.d, pitch, tw, sign, out);
+    stage_last<2, kE, kCols>(s, n, ncol, pitch, tw, sign, out);
   } else if (!kMixed || last == 3) {
-    stage_fast_last<3, kE>(s, n, ncol.d, pitch, tw, sign, out);
+    stage_last<3, kE, kCols>(s, n, ncol, pitch, tw, sign, out);
   } else if (last == 5) {
-    stage_fast_last<5, kE>(s, n, ncol.d, pitch, tw, sign, out);
+    stage_last<5, kE, kCols>(s, n, ncol, pitch, tw, sign, out);
   } else {
-    stage_fast_last<7, kE>(s, n, ncol.d, pitch, tw, sign, out);
+    stage_last<7, kE, kCols>(s, n, ncol, pitch, tw, sign, out);
   }
   return true;
 }

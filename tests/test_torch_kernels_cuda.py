@@ -324,6 +324,47 @@ def test_fft_last_unaligned_and_ragged(cuda, n, rows, off, inverse):
                 lambda a: dn.fft_axis(a, 1, not inverse), (x,))
 
 
+# the persistent column kernel's edges (rows 1 and 19, fft_axis.cu): inputs
+# and ``out=`` views that start 1-3 values into larger buffers (row
+# segments off the bulk copies' 16-byte grid, each plane off by another
+# amount), posts of 1, 3, 129 (row 19's 1032-byte complex64 rows, a last
+# tile of one column) and 130, pre > 1, and the lengths whose tiles are
+# one 32-byte sector wide (384, 640, 1016, 1024); each against its twin
+# and in a round trip
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("pre,n,post,off", [
+    (1, 256, 129, 1), (3, 384, 1, 2), (2, 640, 3, 3), (3, 1016, 130, 1),
+    (2, 1024, 129, 2), (5, 256, 130, 3), (1, 384, 4096, 1),
+    (4, 1024, 3, 0)])
+def test_fft_axis_unaligned_and_ragged(cuda, pre, n, post, off, inverse):
+    shape = (pre, n, post)
+    count = pre * n * post
+
+    def view(seed, o):
+        return _f32((count + o,), cuda, seed)[o:].view(shape)
+    xr, xi = view(1, off), view(2, (off + 1) % 4)
+    out = (view(3, (off + 2) % 4), view(4, (off + 3) % 4))
+    before = p3.LAUNCHES["fft_axis"]
+    got = p3.fft_axis_planar(xr, xi, 1, inverse, out=out)
+    assert p3.LAUNCHES["fft_axis"] == before + 1
+    assert got[0].data_ptr() == out[0].data_ptr()
+    _close(got, p3.fft_axis_planar_ref(xr, xi, 1, inverse))
+    _round_trip(lambda a, b: p3.fft_axis_planar(a, b, 1, inverse),
+                lambda a, b: p3.fft_axis_planar(a, b, 1, not inverse),
+                (xr, xi))
+    from mpifft4py_tpu_torch.ops import dense as dn
+    buf = torch.complex(_f32((count + off,), cuda, 5),
+                        _f32((count + off,), cuda, 6))
+    x = buf[off:].view(shape)
+    name = "dense_fft_last" if post == 1 else "dense_fft_axis"
+    before = p3.LAUNCHES[name]
+    _close(torch.view_as_real(dn.fft_axis(x, 1, inverse)),
+           torch.view_as_real(dn.fft_axis_ref(x, 1, inverse)))
+    assert p3.LAUNCHES[name] == before + 1
+    _round_trip(lambda a: (dn.fft_axis(a, 1, inverse),),
+                lambda a: dn.fft_axis(a, 1, not inverse), (x,))
+
+
 # the persistent r2c's edges (rows 21 and 8, planar_rfft_kernel): inputs
 # that start one value or one row into a larger buffer (the bulk copies'
 # heads and tails), 201 rows and 3-stacks whose row counts are not a

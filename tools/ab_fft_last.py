@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""A/B of the persistent row kernels: the last-axis c2c (``ops/csrc/
+"""A/B of the persistent FFT kernels: the last-axis c2c (``ops/csrc/
 fft_last.cu``, rows 10 and 20), the even-n r2c (``ops/csrc/
-planar_rfft.cu``'s ``planar_rfft_kernel``, rows 8 and 21) and the packed
+planar_rfft.cu``'s ``planar_rfft_kernel``, rows 8 and 21), the packed
 r2c (rows 4 and 17: ``packed_rfft_launch``/``packed_rfft_zdif_launch``,
-wherever the source tree defines them).
+wherever the source tree defines them) and the c2c along a non-last axis
+(``ops/csrc/fft_axis.cu``, rows 1 and 19).
 
-    python3 tools/ab_fft_last.py [--kernel fft_last|planar_rfft|packed_rfft]
+    python3 tools/ab_fft_last.py [--kernel fft_last|planar_rfft|packed_rfft|
+                                  fft_axis]
                                  [--src DIR[:FLAGS] ...] [--iters 30]
                                  [--edit 'LABEL:REGEX=>REPL' ...] [--sweep]
 
 For each ``--src`` directory (a copy of ``mpifft4py_tpu_torch/ops/csrc``;
 default the package's own; after a colon, extra nvcc flags separated by
 commas, e.g. ``csrc:-lineinfo``), builds libraries from the kernel's
-sources (``fft_last.cu``, ``planar_rfft.cu``, or ``packed_rfft.cu`` and
-``planar_rfft.cu`` together, with every ``*.cuh`` of the directory beside
-them) with one ``nvcc`` each, all started together, under
+sources (``fft_last.cu``, ``planar_rfft.cu``, ``fft_axis.cu``, or
+``packed_rfft.cu`` and ``planar_rfft.cu`` together, with every ``*.cuh`` of
+the directory beside them) with one ``nvcc`` each, all started together, under
 ``build/ab_<kernel>/``:
 
 - ``full``: the sources as they are;
@@ -44,7 +46,15 @@ call on the same data:
   128), the 256^3 transform's z stage), row 17 (float32 (1024, 1024)
   -> packed planar (1024, 512) in DIF lane order, NS2D 1024^2's field)
   and row 4 at n = 640 ((409600, 640), ``serialFFT`` 640^3's z stage, a
-  mixed-radix plan).
+  mixed-radix plan);
+- ``fft_axis``: row 1 (planar float32 (256, 256, 128) along axis 0, the
+  256^3 transform's x stage), the y stage (axis 1 of the same) and the
+  packed step's 3-stack ((3, 256, 256, 128), axis 2), the 3/2 rule's n =
+  384 ((384, 384, 384), axes 0 and 1) and the 3/2 rule's y stage ((3,
+  384, 384, 129), axis 2: 516-byte rows), row 19 (complex64 (256, 256, 129)
+  along axis 1, the dense 256^3 chain's y stage), NS2D 1024^2's x stage
+  ((1024, 512), axis 0) and the widened plans n = 640 and 1016 on (n,
+  32768), axis 0.
 
 Each time is the median of ``--iters`` CUDA-event timings; the rate counts
 each input byte read once and each output byte written once.  Each ``full``
@@ -58,7 +68,10 @@ column nf - 1 doubled, scaled) into a width > nf (its round trip through
 the same library's c2r where nf = n/2 + 1); ``packed_rfft`` at every even
 n in 4..2048 in natural order and at n = 512, 768, 1024 in DIF order,
 input and spectrum aligned and one value in, round trips through the
-library's packed c2r.  Prints the card's name and
+library's packed c2r; ``fft_axis`` at every ``supported_c2c`` n in 2..1024
+on (pre, n, post) with pre in {1, 3} and post in {1, 5, 129, 4096}, input
+and output aligned and 1-3 values into larger buffers (separate offsets
+for the two).  Prints the card's name and
 power limit, one line a (shape, variant), and writes the numbers to
 ``chiprun_out/ab_<kernel>.json``.  Needs a CUDA card and ``nvcc``.
 """
@@ -119,6 +132,13 @@ KERNELS = {
               "packed_irfft_zdif_launch": _PACKED},
         variants={"copy": [STAGES_R2C, UNTANGLE_R2C],
                   "nount": [UNTANGLE_R2C]}),
+    "fft_axis": dict(
+        sources=("fft_axis.cu",),
+        sigs={"fft_axis_launch": (_P,) * 5 + (_L, _I, _L, _I, _P),
+              "fft_axis_c64_launch": (_P, _P, _P, _L, _I, _L, _I, _P)},
+        variants={"copy": [[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
+                            (r"!fftblock::block_fft\w*<[^;{]*\)\)",
+                             "true)")]]}),
 }
 
 
@@ -432,6 +452,99 @@ def sweep_packed_rfft(torch, lib, stream):
     return bad
 
 
+def axis_io(torch, lib, stream, c64, shape, offs, gen, tws):
+    """(x, run): a complex (pre, n, post) input in a view ``offs[0]``
+    values into a larger buffer (planar: each plane), and run(a, inv) ->
+    (rc, y), the library's c2c of the middle axis of ``a`` into a view
+    ``offs[1]`` values in (``a`` is x or an earlier output); tws: the
+    twiddles by (n, inverse)."""
+    pre, n, post = shape
+    count = pre * n * post
+
+    def view(off):
+        if c64:
+            return torch.empty(count + off, dtype=torch.complex64,
+                               device="cuda")[off:].view(shape)
+        return [torch.empty(count + off, device="cuda")[off:].view(shape)
+                for _ in range(2)]
+
+    def cplx(v):
+        return v if c64 else torch.complex(*v)
+
+    xv = view(offs[0])
+    z = torch.complex(*(torch.randn(shape, generator=gen, device="cuda")
+                        for _ in range(2)))
+    if c64:
+        xv.copy_(z)
+    else:
+        xv[0].copy_(z.real)
+        xv[1].copy_(z.imag)
+    x = cplx(xv)
+    planes = {id(x): xv}    # a planar output's own planes, by its id
+
+    def run(a, inv):
+        tw = tws[(n, inv)]
+        src = a if c64 else planes[id(a)]
+        y = view(offs[1])
+        if c64:
+            rc = lib.fft_axis_c64_launch(src.data_ptr(), y.data_ptr(),
+                                         tw.data_ptr(), pre, n, post, inv,
+                                         stream)
+        else:
+            rc = lib.fft_axis_launch(src[0].data_ptr(), src[1].data_ptr(),
+                                     y[0].data_ptr(), y[1].data_ptr(),
+                                     tw.data_ptr(), pre, n, post, inv, stream)
+        out = cplx(y)
+        planes[id(out)] = y
+        return rc, out
+    return x, run
+
+
+def sweep_fft_axis(torch, lib, stream):
+    """The c2c along the middle axis of (pre, n, post) at every supported_c2c
+    n in 2..1024, pre in {1, 3}, post in {1, 5, 129, 4096}, both layouts,
+    input and output aligned and 1-3 values into larger buffers: forward
+    against torch.fft (1e-5 of max |twin|), round trip (1e-6 of max |x|).
+    Returns the failures."""
+    from mpifft4py_tpu_torch.ops.fft3d import supported_c2c
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bad, worst, count = [], [0.0, 0.0], 0
+    ns = [n for n in range(2, 1025) if supported_c2c(n)]
+    for n in ns:
+        if n % 128 == 0:
+            print(f"sweep: n = {n}, {len(bad)} failures so far", flush=True)
+        tws = {(n, inv): twiddles(torch, n, n, 1 if inv else -1)
+               for inv in (0, 1)}
+        for pre in (1, 3):
+            for post in (1, 5, 129, 4096):
+                if post == 4096 and pre == 3 and n > 512:
+                    continue
+                for c64 in (False, True):
+                    for offs in ((0, 0), (1 + n % 3, 1 + (n + post) % 3)):
+                        x, run = axis_io(torch, lib, stream, c64,
+                                         (pre, n, post), offs, gen, tws)
+                        for inv in (0, 1):
+                            rc, y = run(x, inv)
+                            rc2, back = run(y, 1 - inv)
+                            ref = (torch.fft.ifft if inv else torch.fft.fft)(
+                                x, dim=1)
+                            torch.cuda.synchronize()
+                            fwd, trip = rel(y, ref), rel(back, x)
+                            worst = [max(worst[0], fwd), max(worst[1], trip)]
+                            count += 1
+                            if rc or rc2 or not fwd <= 1e-5 or \
+                                    not trip <= 1e-6:
+                                bad.append(
+                                    f"n={n} pre={pre} post={post} c64={c64} "
+                                    f"offs={offs} inv={inv}: rc {rc}/{rc2} "
+                                    f"fwd {fwd:.3e} round trip {trip:.3e}")
+    print(f"sweep: {len(ns)} supported_c2c n in 2..1024 x pre {{1, 3}} x "
+          f"post {{1, 5, 129, 4096}} x 2 layouts x 2 offsets x 2 "
+          f"directions ({count} cases); worst fwd {worst[0]:.3e}, round "
+          f"trip {worst[1]:.3e}; {len(bad)} failures")
+    return bad
+
+
 def cases_fft_last(torch, dev, gen, stream):
     """(row, shape, call(lib), got() -> (kernel's, torch.fft's), torch.fft
     call, bytes) at rows 10, 10 (n = 384) and 20."""
@@ -546,6 +659,60 @@ def cases_packed_rfft(torch, dev, gen, stream):
     return out
 
 
+def cases_fft_axis(torch, dev, gen, stream):
+    """The same at row 1 (the x stage), the y stage and the 3-stack, n =
+    384 along axes 0 and 1 and the 3/2 rule's y stage, row 19 (complex64),
+    NS2D 1024^2's x stage and the widened plans n = 640 and 1016."""
+    out = []
+    for row, shape, axis, c64 in (
+            ("row 1", (256, 256, 128), 0, False),
+            ("y stage", (256, 256, 128), 1, False),
+            ("3-stack y", (3, 256, 256, 128), 2, False),
+            ("n=384 x", (384, 384, 384), 0, False),
+            ("n=384 y", (384, 384, 384), 1, False),
+            ("3/2 y", (3, 384, 384, 129), 2, False),
+            ("row 19", (256, 256, 129), 1, True),
+            ("NS2D x", (1024, 512), 0, False),
+            ("n=640", (640, 32768), 0, False),
+            ("n=1016", (1016, 32768), 0, False)):
+        n = shape[axis]
+        pre = int(np.prod(shape[:axis]))
+        post = int(np.prod(shape[axis + 1:]))
+        t = twiddles(torch, n, n, -1)
+        xr, xi = (torch.randn(shape, generator=gen, device=dev)
+                  for _ in range(2))
+        z = torch.complex(xr, xi)
+        if c64:
+            y = torch.empty_like(z)
+
+            def call(lib, z=z, y=y, t=t, pre=pre, n=n, post=post):
+                return lib.fft_axis_c64_launch(z.data_ptr(), y.data_ptr(),
+                                               t.data_ptr(), pre, n, post,
+                                               0, stream)
+
+            def got(z=z, y=y, axis=axis):
+                return y, torch.fft.fft(z, dim=axis)
+            nb = 2 * z.numel() * 8
+            del xr, xi
+        else:
+            yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+
+            def call(lib, xr=xr, xi=xi, yr=yr, yi=yi, t=t, pre=pre, n=n,
+                     post=post):
+                return lib.fft_axis_launch(xr.data_ptr(), xi.data_ptr(),
+                                           yr.data_ptr(), yi.data_ptr(),
+                                           t.data_ptr(), pre, n, post, 0,
+                                           stream)
+
+            def got(yr=yr, yi=yi, z=z, axis=axis):
+                return torch.complex(yr, yi), torch.fft.fft(z, dim=axis)
+            nb = 4 * xr.numel() * 4
+        out.append((row, f"{'complex64' if c64 else 'planar'} {shape} "
+                         f"axis {axis}", call, got,
+                    lambda z=z, axis=axis: torch.fft.fft(z, dim=axis), nb))
+    return out
+
+
 def median_ms(torch, fn, iters, warmup=3):
     for _ in range(warmup):
         fn()
@@ -588,7 +755,9 @@ def main():
     sweep, cases = {"fft_last": (sweep_fft_last, cases_fft_last),
                     "planar_rfft": (sweep_planar_rfft, cases_planar_rfft),
                     "packed_rfft": (sweep_packed_rfft,
-                                    cases_packed_rfft)}[args.kernel]
+                                    cases_packed_rfft),
+                    "fft_axis": (sweep_fft_axis,
+                                 cases_fft_axis)}[args.kernel]
     if args.sweep:
         bad = sweep(torch, libs[(list(libs)[-1][0], "full")], stream)
         for b in bad[:20]:
