@@ -1,0 +1,27 @@
+"""``boundary_ms.roundtrip``: the self device time of the program's
+``mpifft.transform.boundary`` spans in the traced chunks, per round trip
+(the count of ``mpifft.transform.forward``), in ms: ``fftn``'s unpack to
+complex64 and ``ifftn``'s pack back.  Read as ``integrator_ms.step``
+is."""
+
+METRIC = "boundary_ms.roundtrip"
+NAMES = ("mpifft.transform.boundary",)
+UNIT = "mpifft.transform.forward"
+
+
+def read(rec):
+    if rec.segment is None:
+        return None
+    try:
+        from mpifft4py_tpu_torch.utils import profiling
+    except ImportError:             # a program without spans
+        return None
+    spans = profiling.report()
+    units = spans.get(UNIT, {}).get("count")
+    selfs = [spans[n]["self_device_s"] for n in NAMES if n in spans]
+    if not units or not selfs or None in selfs:
+        return None
+    if units != rec.segment.units:
+        rec.notes.append(f"{METRIC}: {units} {UNIT} spans against "
+                         f"{rec.segment.units} traced units")
+    return 1e3 * sum(selfs) / units

@@ -47,7 +47,7 @@ import torch
 
 from ..ops import fft3d as p3
 from ..ops.fft3d import cross, kcross
-from ..utils import spectral
+from ..utils import profiling, spectral
 
 _LSRK54_A = (
     0.0,
@@ -223,17 +223,19 @@ class SpectralSolver:
         order is curl first; views of one (6, N0, N1, N2) tensor).  At
         P > 1 the x inverse crosses the transpose, so the curl is pointwise
         and two packed inverses follow (the reference's distributed
-        branch)."""
+        branch): each carries its own transform span, and the curl stays
+        in the right-hand side's own time."""
         if self.FFT.P > 1:
             cr, ci = p3._curl_pair(Vr, Vi, p3.kvecs(k0, k1, k2))
             if biot_savart:
                 inv = p3.inv_ksq(k0, k1, k2)
                 cr, ci = cr * inv, ci * inv
             return self._bwd_pk((Vr, Vi)), self._bwd_pk((cr, ci))
-        W, V = p3.curl_irfft3d_packed(Vr, Vi, k0, k1, k2,
-                                      self.FFT.global_real_shape(),
-                                      biot_savart=biot_savart,
-                                      with_state=True)
+        with profiling.span("mpifft.transform.backward"):
+            W, V = p3.curl_irfft3d_packed(Vr, Vi, k0, k1, k2,
+                                          self.FFT.global_real_shape(),
+                                          biot_savart=biot_savart,
+                                          with_state=True)
         return V, W
 
     def _nl_fwd_epilogue_pk(self, A, B, Sr, Si, kargs, mode, visc,
@@ -246,24 +248,26 @@ class SpectralSolver:
         ``out``.  At P > 1 (NS3D: A × B, no rider) the slab's
         ``nl_forward_epilogue_fn`` runs the same kernels around the
         transpose."""
-        if self.FFT.P > 1:
-            return self._nl_dist(mode, visc, (A, B, Sr, Si), out)
-        Fzr, Fzi = p3.cross_rfft_zy_packed(A, B, C, D)
-        d = p3.fft_x_epilogue_packed(Fzr, Fzi, Sr, Si, *kargs, mode, visc,
-                                     buoy=buoy, out=out)
-        p3.purify_plane0_dus(d[0], d[1])
-        return d
+        with profiling.span("mpifft.transform.forward"):
+            if self.FFT.P > 1:
+                return self._nl_dist(mode, visc, (A, B, Sr, Si), out)
+            Fzr, Fzi = p3.cross_rfft_zy_packed(A, B, C, D)
+            d = p3.fft_x_epilogue_packed(Fzr, Fzi, Sr, Si, *kargs, mode,
+                                         visc, buoy=buoy, out=out)
+            p3.purify_plane0_dus(d[0], d[1])
+            return d
 
     def _nl_mul_epilogue_pk(self, A, t, Sr, Si, kargs, visc, out=None):
         """The scalar-flux mirror of ``_nl_fwd_epilogue_pk``:
         purify(−i K·mask·fft(A·t)) − visc·k²·S for a physical 3-stack A,
         a (1, N0, N1, N2) field t and a (1, N0, N1, h) state.  Returns a
         (2, 1, N0, N1, h) tensor, or fills ``out``."""
-        Gzr, Gzi = p3.mul_rfft_zy_packed(A, t)
-        d = p3.fft_x_epilogue_packed(Gzr, Gzi, Sr, Si, *kargs, "div", visc,
-                                     out=out)
-        p3.purify_plane0_dus(d[0], d[1])
-        return d
+        with profiling.span("mpifft.transform.forward"):
+            Gzr, Gzi = p3.mul_rfft_zy_packed(A, t)
+            d = p3.fft_x_epilogue_packed(Gzr, Gzi, Sr, Si, *kargs, "div",
+                                         visc, out=out)
+            p3.purify_plane0_dus(d[0], d[1])
+            return d
 
     def _nl_dist(self, mode, visc, args, out):
         """The slab's ``nl_forward_epilogue_fn`` (cached per key) on
@@ -280,9 +284,10 @@ class SpectralSolver:
 
     def _rhs_state(self, V, *kargs):
         """The right-hand side of a state in this solver's layout."""
-        if self.spectral_layout == "packed":
-            return self.rhs_packed(V[0], V[1], *kargs)
-        return self.rhs(V, *kargs)
+        with profiling.span("mpifft.solver.rhs"):
+            if self.spectral_layout == "packed":
+                return self.rhs_packed(V[0], V[1], *kargs)
+            return self.rhs(V, *kargs)
 
     # -- time integrators ---------------------------------------------------------
 
@@ -323,8 +328,9 @@ class SpectralSolver:
         return (U, self._rhs_state(U, *self._step_args()))
 
     def step(self, state):
-        k = self._step_args()
-        return self._advance(lambda V: self._rhs_state(V, *k), state)
+        with profiling.span("mpifft.solver.step"):
+            k = self._step_args()
+            return self._advance(lambda V: self._rhs_state(V, *k), state)
 
     def _carry_state(self, c):
         return c[0] if self.integrator == "AB2" else c
@@ -342,34 +348,36 @@ class SpectralSolver:
 
     def _monitor(self, S):
         """Total Parseval energy of a spectral state (no inverse transforms)."""
-        if self.spectral_layout == "packed":
-            return self._packed_energy(S)
-        from .diagnostics import _hermitian_weights
-        w = _hermitian_weights(self.FFT)
-        ntot = float(np.prod([int(n) for n in self.FFT.N]))
-        mag = (S.real ** 2 + S.imag ** 2) * w
-        return self.FFT._all_reduce(
-            0.5 * self.staged_mean(mag) * mag.numel() / (ntot * ntot))
+        with profiling.span("mpifft.solver.monitor"):
+            if self.spectral_layout == "packed":
+                return self._packed_energy(S)
+            from .diagnostics import _hermitian_weights
+            w = _hermitian_weights(self.FFT)
+            ntot = float(np.prod([int(n) for n in self.FFT.N]))
+            mag = (S.real ** 2 + S.imag ** 2) * w
+            return self.FFT._all_reduce(
+                0.5 * self.staged_mean(mag) * mag.numel() / (ntot * ntot))
 
     def run(self, state, n_steps: int, monitor_every: Optional[int] = None):
         """``n_steps`` steps.  With ``monitor_every=k`` also returns the total
         Parseval energy every k steps, as a tensor of shape
         ``(n_steps // k,)`` on the state's device: ``(final_state, trace)``.
         """
-        if monitor_every is None:
-            for _ in range(n_steps):
+        with profiling.span("mpifft.solver.run"):
+            if monitor_every is None:
+                for _ in range(n_steps):
+                    state = self.step(state)
+                return state
+            k = int(monitor_every)
+            if n_steps % k:
+                raise ValueError(f"n_steps={n_steps} not divisible by "
+                                 f"monitor_every={k}")
+            trace = []
+            for i in range(1, n_steps + 1):
                 state = self.step(state)
-            return state
-        k = int(monitor_every)
-        if n_steps % k:
-            raise ValueError(f"n_steps={n_steps} not divisible by "
-                             f"monitor_every={k}")
-        trace = []
-        for i in range(1, n_steps + 1):
-            state = self.step(state)
-            if i % k == 0:
-                trace.append(self._monitor(self._carry_state(state)))
-        return state, torch.stack(trace)
+                if i % k == 0:
+                    trace.append(self._monitor(self._carry_state(state)))
+            return state, torch.stack(trace)
 
 
 class NavierStokes3D(SpectralSolver):

@@ -51,7 +51,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils import spectral
+from ..utils import profiling, spectral
 
 __all__ = [
     "LAUNCHES", "reset_launches", "supported_c2c", "supported_r2c",
@@ -484,19 +484,21 @@ def pack_plane0(p0, pny):
 
 def unpack_spectrum(yr, yi):
     """packed planar (…,N0,N1,h) -> complex (…,N0,N1,h+1)."""
-    p0, pny = unpack_plane0(yr, yi, axes=(yr.ndim - 3, yr.ndim - 2))
-    body = torch.complex(yr[..., 1:], yi[..., 1:])
-    return torch.cat([p0[..., None], body, pny[..., None]], dim=-1)
+    with profiling.span("mpifft.transform.boundary"):
+        p0, pny = unpack_plane0(yr, yi, axes=(yr.ndim - 3, yr.ndim - 2))
+        body = torch.complex(yr[..., 1:], yi[..., 1:])
+        return torch.cat([p0[..., None], body, pny[..., None]], dim=-1)
 
 
 def pack_spectrum(fu):
     """complex (…,N0,N1,Nf) -> packed planar float32 pair (…,N0,N1,Nf−1)."""
-    nf = fu.shape[-1]
-    qr, qi = pack_plane0(fu[..., 0], fu[..., nf - 1])
-    br = torch.cat([qr[..., None], fu.real[..., 1:nf - 1]], dim=-1)
-    bi = torch.cat([qi[..., None], fu.imag[..., 1:nf - 1]], dim=-1)
-    return (br.to(torch.float32).contiguous(),
-            bi.to(torch.float32).contiguous())
+    with profiling.span("mpifft.transform.boundary"):
+        nf = fu.shape[-1]
+        qr, qi = pack_plane0(fu[..., 0], fu[..., nf - 1])
+        br = torch.cat([qr[..., None], fu.real[..., 1:nf - 1]], dim=-1)
+        bi = torch.cat([qi[..., None], fu.imag[..., 1:nf - 1]], dim=-1)
+        return (br.to(torch.float32).contiguous(),
+                bi.to(torch.float32).contiguous())
 
 
 def purify_plane0(yr, yi):

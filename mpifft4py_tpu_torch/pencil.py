@@ -68,6 +68,7 @@ from .ops import fft_core as fc
 from .parallel import rdma
 from .parallel.mesh import check_divisible, pencil_comm
 from .slab import _PackedDist1D
+from .utils import profiling
 from .utils.spectral import (dealias_cutoffs, pad_full_axis, pad_half_axis,
                              trunc_full_axis, trunc_half_axis,
                              wavenumbers_full)
@@ -309,18 +310,20 @@ class _Pencil3D(_PackedDist1D, BaseFFT):
                 and p3.fft_x_epilogue_ok(int(self.N[0])))
 
     def _fwd_local(self, u, dealias):
-        if self._packed_dist_ok(dealias):
-            return self._fwd_packed_complex(u, dealias)
-        if self._kernel_ok(dealias):
-            return self._fwd_planar(u, dealias)
-        return self._fwd_torch(u, dealias)
+        with profiling.span("mpifft.transform.forward"):
+            if self._packed_dist_ok(dealias):
+                return self._fwd_packed_complex(u, dealias)
+            if self._kernel_ok(dealias):
+                return self._fwd_planar(u, dealias)
+            return self._fwd_torch(u, dealias)
 
     def _bwd_local(self, fu, dealias):
-        if self._packed_dist_ok(dealias):
-            return self._bwd_packed_complex(fu, dealias)
-        if self._kernel_ok(dealias):
-            return self._bwd_planar(fu, dealias)
-        return self._bwd_torch(fu, dealias)
+        with profiling.span("mpifft.transform.backward"):
+            if self._packed_dist_ok(dealias):
+                return self._bwd_packed_complex(fu, dealias)
+            if self._kernel_ok(dealias):
+                return self._bwd_planar(fu, dealias)
+            return self._bwd_torch(fu, dealias)
 
     # -- the packed WIDE choreography (P2 > 1) ---------------------------------------
 

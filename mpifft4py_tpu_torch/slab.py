@@ -54,6 +54,7 @@ from .ops import fft3d as p3
 from .ops import fft_core as fc
 from .parallel import rdma
 from .parallel.mesh import check_divisible
+from .utils import profiling
 from .utils.spectral import (dealias_cutoffs, pad_full_axis, pad_half_axis,
                              trunc_full_axis, trunc_half_axis,
                              wavenumbers_full)
@@ -144,12 +145,13 @@ class _PackedDist1D:
     def _unpack(self, yr, yi):
         """packed pair (…, N0, n1, h) -> complex (…, N0, n1, h + 1): the
         plane-0 riders separated over the gathered (k0, k1) plane."""
-        qr, qi = yr[..., 0], yi[..., 0]
-        cr, ci = self._pk_flipconj(qr, qi)
-        p0 = torch.complex(0.5 * (qr + cr), 0.5 * (qi + ci))
-        pny = torch.complex(0.5 * (qi - ci), -0.5 * (qr - cr))
-        body = torch.complex(yr[..., 1:], yi[..., 1:])
-        return torch.cat([p0[..., None], body, pny[..., None]], dim=-1)
+        with profiling.span("mpifft.transform.boundary"):
+            qr, qi = yr[..., 0], yi[..., 0]
+            cr, ci = self._pk_flipconj(qr, qi)
+            p0 = torch.complex(0.5 * (qr + cr), 0.5 * (qi + ci))
+            pny = torch.complex(0.5 * (qi - ci), -0.5 * (qr - cr))
+            body = torch.complex(yr[..., 1:], yi[..., 1:])
+            return torch.cat([p0[..., None], body, pny[..., None]], dim=-1)
 
     def _purify(self, yr, yi):
         """Drop the Nyquist rider from packed plane 0 in place (→ X0
@@ -182,7 +184,11 @@ class _PackedDist1D:
         away and the pair is the masked spectrum on k2 = 0..h−1.  Leading
         dims batch."""
         self._packed_gate_is_serial(dealias)
-        return lambda u: self._fwd_packed(u, dealias)
+
+        def fwd(u):
+            with profiling.span("mpifft.transform.forward"):
+                return self._fwd_packed(u, dealias)
+        return fwd
 
     def _fwd_packed(self, u, dealias):
         yr, yi = self._pair_fwd(u)
@@ -198,11 +204,13 @@ class _PackedDist1D:
         self._packed_gate_is_serial(dealias)
 
         def bwd(pair):
-            yr, yi = pair
-            if dealias == "2/3-rule":
-                keep = self._packed_mask_local(yr.shape[-1])
-                yr, yi = yr.masked_fill(~keep, 0), yi.masked_fill(~keep, 0)
-            return self._pair_bwd((yr, yi))
+            with profiling.span("mpifft.transform.backward"):
+                yr, yi = pair
+                if dealias == "2/3-rule":
+                    keep = self._packed_mask_local(yr.shape[-1])
+                    yr, yi = (yr.masked_fill(~keep, 0),
+                              yi.masked_fill(~keep, 0))
+                return self._pair_bwd((yr, yi))
         return bwd
 
     # -- the complex interface over the packed pipeline ------------------------------
@@ -211,8 +219,11 @@ class _PackedDist1D:
         if dealias == "2/3-rule":
             # mask in the packed planar domain (the packed forward: purify
             # the Nyquist rider, mask the pair), emit a zero Nyquist column
-            x = torch.complex(*self._fwd_packed(u, dealias))
-            return torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
+            yr, yi = self._fwd_packed(u, dealias)
+            with profiling.span("mpifft.transform.boundary"):
+                x = torch.complex(yr, yi)
+                del yr, yi          # freed before the cat allocates
+                return torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
         return self._unpack(*self._pair_fwd(u))
 
     def _bwd_packed_complex(self, fu, dealias):
@@ -397,18 +408,20 @@ class _Slab3D(BaseFFT):
         raise NotImplementedError
 
     def _fwd_local(self, u, dealias):
-        if not self._kernel_ok(dealias):
-            return self._fwd_torch(u, dealias)
-        if dealias == "3/2-rule":
-            return self._fwd_padded_kernel(u)
-        return self._fwd_kernel(u, dealias)
+        with profiling.span("mpifft.transform.forward"):
+            if not self._kernel_ok(dealias):
+                return self._fwd_torch(u, dealias)
+            if dealias == "3/2-rule":
+                return self._fwd_padded_kernel(u)
+            return self._fwd_kernel(u, dealias)
 
     def _bwd_local(self, fu, dealias):
-        if not self._kernel_ok(dealias):
-            return self._bwd_torch(fu, dealias)
-        if dealias == "3/2-rule":
-            return self._bwd_padded_kernel(fu)
-        return self._bwd_kernel(fu, dealias)
+        with profiling.span("mpifft.transform.backward"):
+            if not self._kernel_ok(dealias):
+                return self._bwd_torch(fu, dealias)
+            if dealias == "3/2-rule":
+                return self._bwd_padded_kernel(fu)
+            return self._bwd_kernel(fu, dealias)
 
     # -- the 3/2 rule's kernel chain (the reference's
     #    ``_fwd_dist_pallas_padded``/``_bwd_dist_pallas_padded``);
@@ -431,15 +444,20 @@ class _Slab3D(BaseFFT):
         yr, yi = self._last_fwd_padded(u)
         ax = yr.ndim - 3
         yr, yi = p3.fft_axis_planar(yr, yi, ax + 1)
-        yr, yi = (trunc_full_axis(a, -2, N1).contiguous() for a in (yr, yi))
+        with profiling.span("mpifft.transform.boundary"):
+            yr, yi = (trunc_full_axis(a, -2, N1).contiguous()
+                      for a in (yr, yi))
 
         def x_stage(t):
             ar, ai = p3.fft_axis_planar(t[0].contiguous(), t[1].contiguous(),
                                         ax)
-            return trunc_full_axis(ar, -3, N0), trunc_full_axis(ai, -3, N0)
+            with profiling.span("mpifft.transform.boundary"):
+                return (trunc_full_axis(ar, -3, N0),
+                        trunc_full_axis(ai, -3, N0))
         yr, yi = self._stage((yr, yi), ax + 1, ax, x_stage,
                              pipeline_axis=ax + 2)
-        return self._sym_nyq(torch.complex(yr, yi))
+        with profiling.span("mpifft.transform.boundary"):
+            return self._sym_nyq(torch.complex(yr, yi))
 
     def _bwd_padded_kernel(self, fu):
         """(…, N0, Np1, lastf) -> (…, Mp0, M1, M2), the mirror: pad x to M0
@@ -450,11 +468,14 @@ class _Slab3D(BaseFFT):
         ax = fu.ndim - 3
 
         def x_stage(t):
-            ar, ai = (pad_full_axis(a, -3, M0).contiguous() for a in t)
+            with profiling.span("mpifft.transform.boundary"):
+                ar, ai = (pad_full_axis(a, -3, M0).contiguous() for a in t)
             return p3.fft_axis_planar(ar, ai, ax, inverse=True)
         yr, yi = self._stage((fu.real, fu.imag), ax, ax + 1,
                              pipeline_axis=ax + 2, pre_fn=x_stage)
-        yr, yi = (pad_full_axis(a, -2, M1).contiguous() for a in (yr, yi))
+        with profiling.span("mpifft.transform.boundary"):
+            yr, yi = (pad_full_axis(a, -2, M1).contiguous()
+                      for a in (yr, yi))
         yr, yi = p3.fft_axis_planar(yr, yi, ax + 1, inverse=True)
         return self._last_bwd_padded(yr, yi)
 
@@ -675,14 +696,19 @@ class C2C(_Slab3D):
         """The last-axis c2c, the y c2c, the transpose and the x c2c (the
         reference's ``_fwd_dist_pallas``; ``ops.fft3d.cfft3d`` at P == 1)."""
         ax = u.ndim - 3
-        yr, yi = p3.fft_last_planar_c2c(u.real.contiguous(),
-                                        u.imag.contiguous())
+        with profiling.span("mpifft.transform.boundary"):
+            ur, ui = u.real.contiguous(), u.imag.contiguous()
+        yr, yi = p3.fft_last_planar_c2c(ur, ui)
+        del ur, ui
         yr, yi = p3.fft_axis_planar(yr, yi, ax + 1)
-        x = torch.complex(*self._stage(
+        pair = self._stage(
             (yr, yi), ax + 1, ax,
             lambda t: p3.fft_axis_planar(t[0].contiguous(),
                                          t[1].contiguous(), ax),
-            pipeline_axis=ax + 2))
+            pipeline_axis=ax + 2)
+        with profiling.span("mpifft.transform.boundary"):
+            x = torch.complex(*pair)
+        del pair
         return self._masked(x) if dealias == "2/3-rule" else x
 
     def _bwd_kernel(self, fu, dealias):
@@ -695,24 +721,31 @@ class C2C(_Slab3D):
                 t[0].contiguous(), t[1].contiguous(), ax, inverse=True))
         yr, yi = p3.fft_axis_planar(yr.contiguous(), yi.contiguous(), ax + 1,
                                     inverse=True)
-        return torch.complex(*p3.fft_last_planar_c2c(yr, yi, inverse=True))
+        pair = p3.fft_last_planar_c2c(yr, yi, inverse=True)
+        with profiling.span("mpifft.transform.boundary"):
+            return torch.complex(*pair)
 
     def _last_fwd_padded(self, u):
         """The z c2c at M2 with 1/padsize³ folded in, then the truncation
         to N2 (row 10)."""
-        yr, yi = p3.fft_last_planar_c2c(u.real.contiguous(),
-                                        u.imag.contiguous(),
-                                        scale=1.0 / self.padsize ** 3)
+        with profiling.span("mpifft.transform.boundary"):
+            ur, ui = u.real.contiguous(), u.imag.contiguous()
+        yr, yi = p3.fft_last_planar_c2c(ur, ui, scale=1.0 / self.padsize ** 3)
+        del ur, ui
         N2 = int(self.N[2])
-        return tuple(trunc_full_axis(a, -1, N2).contiguous()
-                     for a in (yr, yi))
+        with profiling.span("mpifft.transform.boundary"):
+            return tuple(trunc_full_axis(a, -1, N2).contiguous()
+                         for a in (yr, yi))
 
     def _last_bwd_padded(self, yr, yi):
         """The pad to M2, then the z inverse c2c with padsize³ folded in."""
         M2 = int(self.M[2])
-        yr, yi = (pad_full_axis(a, -1, M2).contiguous() for a in (yr, yi))
-        return torch.complex(*p3.fft_last_planar_c2c(
-            yr, yi, inverse=True, scale=self.padsize ** 3))
+        with profiling.span("mpifft.transform.boundary"):
+            yr, yi = (pad_full_axis(a, -1, M2).contiguous() for a in (yr, yi))
+        pair = p3.fft_last_planar_c2c(yr, yi, inverse=True,
+                                      scale=self.padsize ** 3)
+        with profiling.span("mpifft.transform.boundary"):
+            return torch.complex(*pair)
 
     # -- the torch.fft route -----------------------------------------------------
 
