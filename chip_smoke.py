@@ -23,7 +23,10 @@ Phases, each checked; any failed check makes the exit code non-zero:
    round trip through the c2r (1e-6); rows 1 and 19 (``fft_axis.cu``) on
    inputs and ``out=`` views 1-3 values into larger buffers, with post =
    129, 130 and 3 and pre > 1, each against its twin and in a round trip
-   (1e-6);
+   (1e-6); the complex layout's pointwise right-hand side (``rhs_curl``,
+   ``rhs_cross``, ``rhs_leray_visc``, port-only rows P1-P3) at the 256³
+   complex step's shapes, the product also on the 3/2 rule's 384³ grid,
+   against their eager twins at 1e-6;
 3. transforms: ``slab.R2C`` at 256³ and 512³ against float64
    ``torch.fft.rfftn``, the round trip, the 2/3-rule forward, and the
    round-trip time beside ``torch.fft``'s;
@@ -197,6 +200,11 @@ KERNELS = {
                    f"{RDMA}:733 (row 26, fused_transpose_fft_y)"),
     "peer_ifft_y": (f"{CSRC}/peer_fft_x.cu",
                     f"{RDMA}:865 (row 27, fused_ifft_y_transpose)"),
+    # port-only: XLA fuses this pointwise work in the reference
+    "rhs_curl": (f"{CSRC}/rhs_pointwise.cu", "none (row P1, the curl)"),
+    "rhs_cross": (f"{CSRC}/rhs_pointwise.cu", "none (row P2, U x w)"),
+    "rhs_leray_visc": (f"{CSRC}/rhs_pointwise.cu",
+                       "none (row P3, the projection and viscous term)"),
 }
 # phase 12: the packed NS3D step at P = 2 under "rdma": one right-hand side
 # launches row 25 twice (the state and the curl, one 3-stack each) and row
@@ -211,12 +219,14 @@ DIST_RHS = {"peer_a2a": 4, "peer_fft_x": 0, "peer_ifft_x": 2,
 # launches, then the z c2r), the product with the z r2c, the P2 transpose
 # with the y c2c, the joint transpose, the x epilogue, the plane-0 gather
 # over the joint group (row 23 a planar leaf).  Complex: two inverses
-# (rows 25, 27, 9) and the forward (rows 8, 26, 24), a 3-stack a launch.
+# (rows 25, 27, 9) and the forward (rows 8, 26, 24), a 3-stack a launch,
+# and the pointwise curl, product and projection, one launch each.
 PENCIL_PACKED_RHS = {"peer_a2a": 14, "fft_axis": 5, "packed_irfft_last": 2,
                      "cross_rfft_z": 1, "fft_x_epilogue": 1}
 PENCIL_COMPLEX_RHS = {"peer_ifft_x": 2, "peer_ifft_y": 2,
                       "planar_irfft_last": 2, "planar_rfft_last": 1,
-                      "peer_fft_y": 1, "peer_fft_x": 1}
+                      "peer_fft_y": 1, "peer_fft_x": 1, "rhs_curl": 1,
+                      "rhs_cross": 1, "rhs_leray_visc": 1}
 NU, DT = 0.000625, 0.01
 TRANSFORM_KERNELS = ("fft_axis", "packed_rfft_last", "packed_irfft_last")
 PADDED_KERNELS = ("fft_axis", "planar_rfft_last", "planar_irfft_last")
@@ -408,6 +418,26 @@ def kernel_phase(torch, p3, zd, dn, rng):
     epi_ref = (lambda: p3.fft_x_epilogue_packed_ref(ur, ui, sr, si, *km,
                                                     "project", NU))
     compare("fft_x_epilogue", "256^3 project", tuple(epi()), tuple(epi_ref()))
+
+    # the complex layout's pointwise right-hand side (rows P1-P3): the curl
+    # and the projection on the 256^3 complex step's (3, 256, 256, 129)
+    # stacks with its 1-D wavenumbers, the product on the N grid's and the
+    # 3/2 rule's M grid's physical stacks
+    from mpifft4py_tpu_torch.utils import spectral
+    kc = spectral.factored_wavenumbers((256,) * 3, None, 129, device="cuda")
+    uc, fc = (torch.complex(cu((3, 256, 256, 129)), cu((3, 256, 256, 129)))
+              for _ in "uf")
+    compare("rhs_curl", "(3, 256, 256, 129)", p3.rhs_curl(uc, *kc),
+            p3.rhs_curl_ref(uc, *kc), 1e-6)
+    compare("rhs_leray_visc", "(3, 256, 256, 129)",
+            p3.rhs_leray_visc(fc, uc, *kc, NU),
+            p3.rhs_leray_visc_ref(fc, uc, *kc, NU), 1e-6)
+    compare("rhs_cross", "(3, 256^3)", p3.rhs_cross(a, b),
+            p3.rhs_cross_ref(a, b), 1e-6)
+    am, bm = cu((3, 384, 384, 384)), cu((3, 384, 384, 384))
+    compare("rhs_cross", "(3, 384^3), the 3/2 rule's grid",
+            p3.rhs_cross(am, bm), p3.rhs_cross_ref(am, bm), 1e-6)
+    del am, bm
 
     # the solver family's variants at the same shapes: the Biot-Savart curl
     # (VV), cross2 (MHD), mul (Boussinesq, also at 512-class planes, row
@@ -686,6 +716,16 @@ def kernel_phase(torch, p3, zd, dn, rng):
                          nbytes(a, b, ur, ui), fft_flops(3 * n3, 256, True)),
         "fft_x_epilogue": (epi, epi_ref, None, 6 * nbytes(ur),
                            fft_flops(pk3, 256)),
+        # rows P1-P3: one read of each input, one write (48, 36 and 72
+        # bytes a point), no FFT
+        "rhs_curl": (lambda: p3.rhs_curl(uc, *kc),
+                     lambda: p3.rhs_curl_ref(uc, *kc), None, 2 * nbytes(uc),
+                     0),
+        "rhs_cross": (lambda: p3.rhs_cross(a, b),
+                      lambda: p3.rhs_cross_ref(a, b), None, 3 * nbytes(a), 0),
+        "rhs_leray_visc": (lambda: p3.rhs_leray_visc(fc, uc, *kc, NU),
+                           lambda: p3.rhs_leray_visc_ref(fc, uc, *kc, NU),
+                           None, 3 * nbytes(uc), 0),
         "curl_ifft_x_biot_savart": (
             lambda: p3.curl_ifft_x(ur, ui, *km[:3], True, True),
             lambda: p3.curl_ifft_x_ref(ur, ui, *km[:3], True, True), None,

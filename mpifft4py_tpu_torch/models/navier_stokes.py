@@ -20,7 +20,9 @@ runs at P > 1 so far.
 
 * ``spectral_layout="complex"``: the state is a complex (3, N0, N1, Nf)
   tensor; each right-hand side does three batched transform calls
-  (velocity, vorticity, nonlinear term), one launch sequence per 3-stack.
+  (velocity, vorticity, nonlinear term), one launch sequence per 3-stack,
+  and its pointwise stages (the curl, U × ω, the projection with the
+  viscous term) in one pass each (``ops.fft3d.rhs_*``).
   Under ``dealias="3/2-rule"`` the velocity and vorticity come back on the
   padded grid and the nonlinear term's forward truncates to the N grid.
 * ``spectral_layout="packed"``: the state is the packed planar float32 pair
@@ -46,7 +48,6 @@ import numpy as np
 import torch
 
 from ..ops import fft3d as p3
-from ..ops.fft3d import cross, kcross
 from ..utils import profiling, spectral
 
 _LSRK54_A = (
@@ -437,24 +438,21 @@ class NavierStokes3D(SpectralSolver):
         return torch.stack(self._fwd_pk(u))
 
     def rhs(self, U_hat, k0, k1, k2):
-        """dU_hat/dt from the factored 1-D wavenumbers (k0, k1, k2)."""
-        K0 = k0[:, None, None]
-        K1 = k1[None, :, None]
-        K2v = k2[None, None, :]
+        """dU_hat/dt from the factored 1-D wavenumbers (k0, k1, k2).  The
+        pointwise stages are one pass each (``ops.fft3d.rhs_*``: a kernel
+        in float32 on the card, the eager twin otherwise)."""
         U = self._bwd_nl(U_hat)
         # vorticity: ω = ifftn(i K × U_hat)
-        W = self._bwd_nl(1j * kcross((K0, K1, K2v), U_hat))
+        W = self._bwd_nl(p3.rhs_curl(U_hat, k0, k1, k2))
         # nonlinear term F = U × ω (on the M grid under the 3/2 rule),
         # transformed with dealiasing back to the N grid
-        F_hat = self._fwd(cross(U, W))
+        F_hat = self._fwd(p3.rhs_cross(U, W))
         del U, W
         # Leray projection + viscous term
-        ksq = K0 * K0 + K1 * K1 + K2v * K2v
-        div = ((K0 * F_hat[0] + K1 * F_hat[1] + K2v * F_hat[2])
-               / torch.where(ksq == 0, 1, ksq))
-        dU = F_hat - torch.stack([K0 * div, K1 * div, K2v * div])
-        dU = dU - (self.nu * ksq)[None] * U_hat
+        dU = p3.rhs_leray_visc(F_hat, U_hat, k0, k1, k2, self.nu)
         if self.forcing_band is not None and self.forcing_rate > 0:
+            K0, K1, K2v = p3.kvecs(k0, k1, k2)
+            ksq = K0 * K0 + K1 * K1 + K2v * K2v
             klo, khi = self.forcing_band
             band = (ksq >= klo * klo) & (ksq < khi * khi)
             # Hermitian half-spectrum weights: k2 = 0 and the z-Nyquist

@@ -25,7 +25,8 @@ __all__ = ["load", "build_dir", "last_build_seconds", "ptxas_report"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fft_axis.cu", "packed_rfft.cu", "curl_ifft_x.cu",
            "cross_rfft_z.cu", "fft_x_epilogue.cu", "planar_rfft.cu",
-           "fft_last.cu", "peer_fft_x.cu", "peer_a2a.cu")
+           "fft_last.cu", "peer_fft_x.cu", "peer_a2a.cu",
+           "rhs_pointwise.cu")
 HEADERS = ("fft_block.cuh", "packed_z.cuh", "bulk_ring.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -83,6 +84,13 @@ _SIGNATURES = {
     # x, peers, dst_off, P, my, outer, ns, mid, nc, inner, split_first,
     # stream
     "peer_a2a_launch": (_P, _P, _L, _I, _I) + (_L,) * 5 + (_I, _P),
+    # the complex layout's pointwise right-hand side (complex64 as float
+    # pairs): u, k0, k1, k2, y, n0, n1, nf, stream
+    "rhs_curl_launch": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # a, b, y, plane, stream
+    "rhs_cross_launch": (_P,) * 3 + (_L, _P),
+    # f, u, k0, k1, k2, y, n0, n1, nf, nu, stream
+    "rhs_leray_visc_launch": (_P,) * 6 + (_I,) * 3 + (ctypes.c_float, _P),
 }
 
 _lib = None

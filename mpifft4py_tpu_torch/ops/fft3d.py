@@ -5,7 +5,7 @@ packed-Hermitian planar layout.  Kernel functions take and return planar
 ``(re, im)`` float32 pairs; a packed spectrum sits in h = n/2 columns with
 column 0 holding X[0] + i·X[n/2].
 
-Eleven CUDA kernels (``csrc/``; the fused three with template variants)
+Fourteen CUDA kernels (``csrc/``; the fused three with template variants)
 carry the path, each for every length of the reference's envelope
 (``supported_c2c``/``supported_r2c``, through the mixed-radix plans of
 ``csrc/fft_block.cuh``):
@@ -28,7 +28,12 @@ carry the path, each for every length of the reference's envelope
   C × D or a_c·t, with the packed z r2c, for ``cross_rfft_zy_packed`` and
   ``mul_rfft_zy_packed``) and ``fft_x_epilogue`` (the x forward with the
   mask, the projection, curl or divergence, the buoyancy rider and the
-  diffusive term, ``fft_x_epilogue_packed``).
+  diffusive term, ``fft_x_epilogue_packed``);
+* the complex layout's pointwise right-hand side (``csrc/rhs_pointwise.cu``,
+  one pass a stage): ``rhs_curl`` (i K × Û), ``rhs_cross`` (A × B of two
+  physical stacks) and ``rhs_leray_visc`` (the Leray projection and the
+  viscous term), complex64/float32 at the boundary.  Their twins also run
+  for complex128/float64 on any device (the "double" precision).
 
 ``fused_zy_fwd`` / ``fused_zy_bwd`` keep the reference's contracts as one
 launch per stage (see the source note in ``csrc/fft_axis.cu``); so do the
@@ -64,7 +69,8 @@ __all__ = [
     "curl_irfft3d_packed", "cross_rfft_z", "cross_rfft_zy_packed",
     "mul_rfft_z", "mul_rfft_zy_packed", "fft_x_epilogue_packed", "cross",
     "kvecs", "kcross", "kdot", "inv_ksq", "rfft_last_planar",
-    "irfft_last_planar", "fft_last_planar_c2c", "cfft3d",
+    "irfft_last_planar", "fft_last_planar_c2c", "cfft3d", "rhs_curl",
+    "rhs_cross", "rhs_leray_visc",
 ]
 
 LAUNCHES = {"fft_axis": 0, "packed_rfft_last": 0, "packed_irfft_last": 0,
@@ -76,7 +82,9 @@ LAUNCHES = {"fft_axis": 0, "packed_rfft_last": 0, "packed_irfft_last": 0,
             "packed_rfft_last_zdif": 0, "packed_irfft_last_zdif": 0,
             # rows 19-22, launched by ops/dense.py
             "dense_fft_axis": 0, "dense_fft_last": 0, "dense_rfft_last": 0,
-            "dense_irfft_last": 0}
+            "dense_irfft_last": 0,
+            # the complex layout's pointwise right-hand side
+            "rhs_curl": 0, "rhs_cross": 0, "rhs_leray_visc": 0}
 
 
 def reset_launches() -> None:
@@ -870,3 +878,114 @@ def fft_x_epilogue_packed(fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2,
             n0, n1, h, float(visc), _EPILOGUE_MODES[mode],
             float(buoy[2]) if buoy is not None else 0.0, device=fzr.device)
     return out
+
+
+# -- the complex layout's pointwise right-hand side ---------------------------------
+#
+# One kernel a stage (csrc/rhs_pointwise.cu) for ``NavierStokes3D.rhs``: the
+# curl i K × Û, the product A × B of two physical 3-stacks, and the Leray
+# projection with the viscous term.  The twins are the solver's eager
+# expressions; they run for CPU tensors, and for complex128/float64 on any
+# device.  The kernels take complex64/float32 on CUDA; an input that is
+# not contiguous is copied first.
+
+
+def _rhs_route(name, fields, vecs=()) -> bool:
+    """Validates a pointwise right-hand-side function's tensors, all on one
+    device: complex ``fields`` of one dtype with wavenumbers ``vecs`` of
+    its real dtype (the curl, the projection), or real fields of one dtype
+    (the product).  True where its kernel launches (CUDA complex64 or
+    float32), False where its twin runs."""
+    dtype = fields[0].dtype
+    reals = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+    if (dtype not in (reals if vecs else reals.values())
+            or any(t.dtype != dtype for t in fields)
+            or any(v.dtype != reals[dtype] for v in vecs)):
+        want = ("complex64/complex128 fields and wavenumbers of their real "
+                "dtype" if vecs else "float32/float64 fields")
+        raise TypeError(f"{name}: needs {want} of one dtype, got "
+                        f"{[str(t.dtype) for t in (*fields, *vecs)]}")
+    devices = {t.device for t in (*fields, *vecs)}
+    if len(devices) != 1 or {d.type for d in devices} - {"cpu", "cuda"}:
+        raise ValueError(f"{name}: tensors must all be on the CPU or all on "
+                         f"one CUDA device, got {sorted(map(str, devices))}")
+    return (fields[0].device.type == "cuda"
+            and dtype in (torch.complex64, torch.float32))
+
+
+def _complex_stack(name, fields, k0, k1, k2):
+    """Shape checks of a complex (3, N0, N1, nf) stack (several of one
+    shape) and its 1-D wavenumbers; the stack's (N0, N1, nf)."""
+    shape = tuple(fields[0].shape)
+    if any(tuple(f.shape) != shape for f in fields):
+        raise ValueError(f"{name}: stacks of different shapes "
+                         f"{[tuple(f.shape) for f in fields]}")
+    _check_stack(name, shape, (k0, k1, k2))
+    if math.prod(shape[1:]) > 2 ** 31 - 1:
+        raise ValueError(f"{name}: a (N0, N1, nf) plane of "
+                         f"{math.prod(shape[1:])} values is beyond the "
+                         f"kernel's 32-bit indices")
+    return shape[1:]
+
+
+def rhs_curl_ref(u, k0, k1, k2):
+    return 1j * kcross(kvecs(k0, k1, k2), u)
+
+
+def rhs_curl(u, k0, k1, k2):
+    """i K × Û of a complex spectral 3-stack (3, N0, N1, nf) from the 1-D
+    wavenumbers k0 (N0), k1 (N1), k2 (nf): one read of Û and one write."""
+    n0, n1, nf = _complex_stack("rhs_curl", (u,), k0, k1, k2)
+    if not _rhs_route("rhs_curl", (u,), (k0, k1, k2)):
+        return rhs_curl_ref(u, k0, k1, k2)
+    u, k0, k1, k2 = (t.contiguous() for t in (u, k0, k1, k2))
+    y = torch.empty_like(u)
+    _launch("rhs_curl", "rhs_curl_launch", u.data_ptr(), k0.data_ptr(),
+            k1.data_ptr(), k2.data_ptr(), y.data_ptr(), n0, n1, nf,
+            device=u.device)
+    return y
+
+
+def rhs_cross_ref(a, b):
+    return cross(a, b)
+
+
+def rhs_cross(a, b):
+    """A × B of two real (3, …) stacks of one shape (the physical velocity
+    and vorticity, on the N or the 3/2 rule's M grid): six fields read,
+    three written."""
+    if a.ndim < 2 or a.shape[0] != 3 or a.shape != b.shape:
+        raise ValueError(f"rhs_cross: needs two (3, …) stacks of one shape, "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if not _rhs_route("rhs_cross", (a, b)):
+        return rhs_cross_ref(a, b)
+    a, b = a.contiguous(), b.contiguous()
+    y = torch.empty_like(a)
+    _launch("rhs_cross", "rhs_cross_launch", a.data_ptr(), b.data_ptr(),
+            y.data_ptr(), a[0].numel(), device=a.device)
+    return y
+
+
+def rhs_leray_visc_ref(f, u, k0, k1, k2, nu: float):
+    K0, K1, K2v = kvecs(k0, k1, k2)
+    ksq = K0 * K0 + K1 * K1 + K2v * K2v
+    div = ((K0 * f[0] + K1 * f[1] + K2v * f[2])
+           / torch.where(ksq == 0, 1, ksq))
+    dU = f - torch.stack([K0 * div, K1 * div, K2v * div])
+    return dU - (nu * ksq)[None] * u
+
+
+def rhs_leray_visc(f, u, k0, k1, k2, nu: float):
+    """F̂ − K (K·F̂)/|K|² − ν |K|² Û for complex spectral 3-stacks F̂ (the
+    nonlinear term) and Û (the state) of one shape (3, N0, N1, nf), with
+    |K|² = 0 taken as 1 in the divisor: F̂ and Û read once, the increment
+    written once."""
+    n0, n1, nf = _complex_stack("rhs_leray_visc", (f, u), k0, k1, k2)
+    if not _rhs_route("rhs_leray_visc", (f, u), (k0, k1, k2)):
+        return rhs_leray_visc_ref(f, u, k0, k1, k2, nu)
+    f, u, k0, k1, k2 = (t.contiguous() for t in (f, u, k0, k1, k2))
+    y = torch.empty_like(f)
+    _launch("rhs_leray_visc", "rhs_leray_visc_launch", f.data_ptr(),
+            u.data_ptr(), k0.data_ptr(), k1.data_ptr(), k2.data_ptr(),
+            y.data_ptr(), n0, n1, nf, float(nu), device=f.device)
+    return y

@@ -866,3 +866,101 @@ def test_pencil_p1_on_the_card_matches_float64(cuda):
     u3 = _f32((96, 72, 120), cuda, 4)
     S = R2C(N, L, None, "single", device=cuda)
     _close(F.fftn(u3, dealias="3/2-rule"), S.fftn(u3, dealias="3/2-rule"))
+
+
+# the complex layout's pointwise right-hand side (csrc/rhs_pointwise.cu):
+# a ragged stack, an odd plane (the one-value path), the 512^3 state, and
+# each stack one value into a larger buffer (off the 16-byte grid)
+RHS_COMPLEX = [((3, 24, 20, 13), 0), ((3, 5, 3, 7), 0),
+               ((3, 512, 512, 257), 0), ((3, 24, 20, 13), 1)]
+RHS_REAL = [((3, 24, 20, 13), 0), ((3, 5, 3, 7), 0), ((3, 512, 512, 512), 0),
+            ((3, 8, 768, 768), 0), ((3, 24, 20, 16), 1)]
+
+
+def _rhs_close(got, ref):
+    """Within 1e-6 of max |twin| (the kernels round as the eager chain
+    does, the projection's quotient but for its last bit)."""
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def _rhs_field(shape, off, dtype, device, seed):
+    """A seeded contiguous stack of ``shape``, ``off`` values into its own
+    buffer."""
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(int(np.prod(shape)) + off, generator=g, dtype=dtype,
+                    device=device)
+    return x[off:].view(shape)
+
+
+def _rhs_kvecs(shape, device):
+    """The complex layout's scaled 1-D wavenumbers of (N0, N1, nf)."""
+    n0, n1, nf = shape
+    k = (np.fft.fftfreq(n0, 1 / n0), 0.5 * np.fft.fftfreq(n1, 1 / n1),
+         2.0 * np.arange(nf))
+    return tuple(torch.as_tensor(v.astype(np.float32), device=device)
+                 for v in k)
+
+
+@pytest.mark.parametrize("shape,off", RHS_COMPLEX)
+def test_rhs_curl_matches_twin(cuda, shape, off):
+    u = _rhs_field(shape, off, torch.complex64, cuda, 1)
+    k = _rhs_kvecs(shape[1:], cuda)
+    before = p3.LAUNCHES["rhs_curl"]
+    got = p3.rhs_curl(u, *k)
+    assert p3.LAUNCHES["rhs_curl"] == before + 1
+    _rhs_close(got, p3.rhs_curl_ref(u, *k))
+
+
+@pytest.mark.parametrize("shape,off", RHS_REAL)
+def test_rhs_cross_matches_twin(cuda, shape, off):
+    a = _rhs_field(shape, off, torch.float32, cuda, 1)
+    b = _rhs_field(shape, off, torch.float32, cuda, 2)
+    before = p3.LAUNCHES["rhs_cross"]
+    got = p3.rhs_cross(a, b)
+    assert p3.LAUNCHES["rhs_cross"] == before + 1
+    _rhs_close(got, p3.rhs_cross_ref(a, b))
+
+
+@pytest.mark.parametrize("shape,off", RHS_COMPLEX)
+def test_rhs_leray_visc_matches_twin(cuda, shape, off):
+    f = _rhs_field(shape, off, torch.complex64, cuda, 1)
+    u = _rhs_field(shape, off, torch.complex64, cuda, 3)
+    k = _rhs_kvecs(shape[1:], cuda)
+    before = p3.LAUNCHES["rhs_leray_visc"]
+    got = p3.rhs_leray_visc(f, u, *k, 0.000625)
+    assert p3.LAUNCHES["rhs_leray_visc"] == before + 1
+    _rhs_close(got, p3.rhs_leray_visc_ref(f, u, *k, 0.000625))
+
+
+RHS_NAMES = ("rhs_curl", "rhs_cross", "rhs_leray_visc")
+
+
+@pytest.mark.parametrize("dealias", ["2/3-rule", "3/2-rule"])
+def test_complex_rhs_on_the_card_matches_twin_path(cuda, monkeypatch,
+                                                   dealias):
+    FFT = R2C(np.array([64, 64, 64]), np.array([2 * np.pi] * 3), None,
+              "single", device=cuda)
+    s = NavierStokes3D(FFT, nu=0.01, dt=0.01, dealias=dealias)
+    U = s.taylor_green()
+    U = U + 0.05 * _rhs_field(U.shape, 0, torch.complex64, cuda, 5) \
+        * (U.abs().max() / 4)
+    before = {n: p3.LAUNCHES[n] for n in RHS_NAMES}
+    got = s.rhs_with_state(U)
+    assert all(p3.LAUNCHES[n] == before[n] + 1 for n in RHS_NAMES)
+    for n in RHS_NAMES:
+        monkeypatch.setattr(p3, n, getattr(p3, n + "_ref"))
+    _rhs_close(got, s.rhs_with_state(U))
+
+
+def test_rhs_kernels_launch_four_times_a_complex_step_none_packed(cuda):
+    FFT = R2C(np.array([32, 32, 256]), np.array([2 * np.pi] * 3), None,
+              "single", device=cuda)
+    for layout, want in (("complex", 4), ("packed", 0)):
+        s = NavierStokes3D(FFT, nu=0.01, dt=0.01, spectral_layout=layout)
+        U = s.taylor_green()
+        before = {n: p3.LAUNCHES[n] for n in RHS_NAMES}
+        s.step(U)
+        assert {n: p3.LAUNCHES[n] - before[n] for n in RHS_NAMES} == \
+            dict.fromkeys(RHS_NAMES, want)

@@ -4,18 +4,21 @@ fft_last.cu``, rows 10 and 20), the even-n r2c (``ops/csrc/
 planar_rfft.cu``'s ``planar_rfft_kernel``, rows 8 and 21), the packed
 r2c (rows 4 and 17: ``packed_rfft_launch``/``packed_rfft_zdif_launch``,
 wherever the source tree defines them) and the c2c along a non-last axis
-(``ops/csrc/fft_axis.cu``, rows 1 and 19).
+(``ops/csrc/fft_axis.cu``, rows 1 and 19); and of the complex layout's
+pointwise right-hand side (``ops/csrc/rhs_pointwise.cu``, port-only rows
+P1-P3) against its eager twins.
 
     python3 tools/ab_fft_last.py [--kernel fft_last|planar_rfft|packed_rfft|
-                                  fft_axis]
+                                  fft_axis|rhs_pointwise]
                                  [--src DIR[:FLAGS] ...] [--iters 30]
                                  [--edit 'LABEL:REGEX=>REPL' ...] [--sweep]
 
 For each ``--src`` directory (a copy of ``mpifft4py_tpu_torch/ops/csrc``;
 default the package's own; after a colon, extra nvcc flags separated by
 commas, e.g. ``csrc:-lineinfo``), builds libraries from the kernel's
-sources (``fft_last.cu``, ``planar_rfft.cu``, ``fft_axis.cu``, or
-``packed_rfft.cu`` and ``planar_rfft.cu`` together, with every ``*.cuh`` of
+sources (``fft_last.cu``, ``planar_rfft.cu``, ``fft_axis.cu``,
+``rhs_pointwise.cu``, or ``packed_rfft.cu`` and ``planar_rfft.cu``
+together, with every ``*.cuh`` of
 the directory beside them) with one ``nvcc`` each, all started together, under
 ``build/ab_<kernel>/``:
 
@@ -23,7 +26,8 @@ the directory beside them) with one ``nvcc`` each, all started together, under
 - ``copy``: the same sources with the kernel's ``fftblock::block_fft...``
   call cut out (and, for the r2c kernels, its untangle replaced by the
   spectrum's own values), so the kernel only moves each tile in (global ->
-  shared) and back out (shared -> global), with no FFT stages;
+  shared) and back out (shared -> global), with no FFT stages (not for
+  ``rhs_pointwise``, which only streams);
 - ``nount`` (``packed_rfft`` only): the untangle cut, the stages kept;
 - one more library for each ``--edit`` of the last ``--src``: its source
   and headers with every match of REGEX replaced by REPL (several pairs
@@ -54,11 +58,18 @@ call on the same data:
   384, 384, 129), axis 2: 516-byte rows), row 19 (complex64 (256, 256, 129)
   along axis 1, the dense 256^3 chain's y stage), NS2D 1024^2's x stage
   ((1024, 512), axis 0) and the widened plans n = 640 and 1016 on (n,
-  32768), axis 0.
+  32768), axis 0;
+- ``rhs_pointwise``: at the 512^3 cells' shapes, beside the eager twin
+  (``ops.fft3d.rhs_*_ref``, the expressions ``NavierStokes3D.rhs`` ran
+  before the kernels) in place of ``torch.fft``: the curl i K x U and the
+  projection with the viscous term on (3, 512, 512, 257) complex64
+  stacks, U x w on (3, n^3) float32 stacks at n = 512 (the 2/3 rule's N
+  grid) and 768 (the 3/2 rule's M grid).
 
 Each time is the median of ``--iters`` CUDA-event timings; the rate counts
-each input byte read once and each output byte written once.  Each ``full``
-library's outputs are held against ``torch.fft`` (relative 1e-5).
+each input byte read once and each output byte written once, beside its
+share of the H100's 3.35 TB/s.  Each ``full`` library's outputs are held
+against ``torch.fft`` or the twin (relative 1e-5).
 ``--sweep`` first holds the last ``--src``'s full library, both layouts,
 against ``torch.fft`` (1e-5) and in a round trip (1e-6), on 37 rows and on
 views that start one value into a larger buffer (bases off the bulk
@@ -71,7 +82,7 @@ input and spectrum aligned and one value in, round trips through the
 library's packed c2r; ``fft_axis`` at every ``supported_c2c`` n in 2..1024
 on (pre, n, post) with pre in {1, 3} and post in {1, 5, 129, 4096}, input
 and output aligned and 1-3 values into larger buffers (separate offsets
-for the two).  Prints the card's name and
+for the two); ``rhs_pointwise`` has no sweep.  Prints the card's name and
 power limit, one line a (shape, variant), and writes the numbers to
 ``chiprun_out/ab_<kernel>.json``.  Needs a CUDA card and ``nvcc``.
 """
@@ -104,6 +115,8 @@ UNTANGLE_R2C = [(r"packedz::untangle\(s, pitch, rho, k, h, tw_n\)",
                  "s[k * pitch + rho]"),
                 (r"untangle_pair\(Z, Zf, [^;]*\);", "Xk = Z; Xf = Zf;")]
 _PACKED = (_P,) * 5 + (_L, _I, _P)
+HBM = 3.35e12                 # H100 SXM HBM3, bytes/s
+NU = 0.000625                 # the 512^3 cells' viscosity
 # kernel: its sources, its entry points' argtypes, and its variants beside
 # `full`: groups of (REGEX, REPL) alternatives, the first alternative that
 # matches in the sources applied, each group matching exactly once
@@ -139,6 +152,12 @@ KERNELS = {
         variants={"copy": [[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
                             (r"!fftblock::block_fft\w*<[^;{]*\)\)",
                              "true)")]]}),
+    "rhs_pointwise": dict(
+        sources=("rhs_pointwise.cu",),
+        sigs={name: _build._SIGNATURES[name]
+              for name in ("rhs_curl_launch", "rhs_cross_launch",
+                           "rhs_leray_visc_launch")},
+        variants={}, plain="twin"),
 }
 
 
@@ -219,14 +238,15 @@ def build(kernel, srcs, edits=()):
 
 def print_ptxas(key, log):
     """One line a kernel instance: ptxas's registers and spill bytes (an
-    instance's template arguments as numbers: a bool, or an enum's value)."""
+    instance's template arguments as numbers: a bool, an int, or an enum's
+    value)."""
     name, spill = "?", ""
     for line in log.splitlines():
         m = re.search(r"entry function .*?\d([a-z][a-z_]*_kernel)I"
-                      r"((?:L(?:b|N[^E]*E)\d+E)+)", line)
+                      r"((?:L(?:b|i|N[^E]*E)\d+E)+)", line)
         if m:
             name = m.group(1) + "<" + ", ".join(
-                re.findall(r"L(?:b|N[^E]*E)(\d+)E", m.group(2))) + ">"
+                re.findall(r"L(?:b|i|N[^E]*E)(\d+)E", m.group(2))) + ">"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -713,6 +733,40 @@ def cases_fft_axis(torch, dev, gen, stream):
     return out
 
 
+def cases_rhs_pointwise(torch, dev, gen, stream):
+    """The same for rows P1-P3, their eager twins in place of torch.fft."""
+    from mpifft4py_tpu_torch.ops import fft3d as p3
+    from mpifft4py_tpu_torch.utils import spectral
+    shape = (3, 512, 512, 257)
+    k = spectral.factored_wavenumbers(shape[1:], None, 257, device=dev)
+    kp = [v.data_ptr() for v in k]
+    u, f = (torch.complex(*(torch.randn(shape, generator=gen, device=dev)
+                            for _ in "ri")) for _ in "uf")
+    y = torch.empty_like(u)
+    out = [("row P1 rhs_curl", str(shape),
+            lambda lib: lib.rhs_curl_launch(u.data_ptr(), *kp, y.data_ptr(),
+                                            *shape[1:], stream),
+            lambda: (y, p3.rhs_curl_ref(u, *k)),
+            lambda: p3.rhs_curl_ref(u, *k), 2 * u.nbytes),
+           ("row P3 rhs_leray_visc", str(shape),
+            lambda lib: lib.rhs_leray_visc_launch(
+                f.data_ptr(), u.data_ptr(), *kp, y.data_ptr(), *shape[1:], NU,
+                stream),
+            lambda: (y, p3.rhs_leray_visc_ref(f, u, *k, NU)),
+            lambda: p3.rhs_leray_visc_ref(f, u, *k, NU), 3 * u.nbytes)]
+    for n in (512, 768):
+        a, b = (torch.randn((3, n, n, n), generator=gen, device=dev)
+                for _ in "ab")
+        z = torch.empty_like(a)
+        out.append(("row P2 rhs_cross", f"(3, {n}, {n}, {n})",
+                    lambda lib, a=a, b=b, z=z: lib.rhs_cross_launch(
+                        a.data_ptr(), b.data_ptr(), z.data_ptr(),
+                        a[0].numel(), stream),
+                    lambda a=a, b=b, z=z: (z, p3.rhs_cross_ref(a, b)),
+                    lambda a=a, b=b: p3.rhs_cross_ref(a, b), 3 * a.nbytes))
+    return out
+
+
 def median_ms(torch, fn, iters, warmup=3):
     for _ in range(warmup):
         fn()
@@ -757,7 +811,12 @@ def main():
                     "packed_rfft": (sweep_packed_rfft,
                                     cases_packed_rfft),
                     "fft_axis": (sweep_fft_axis,
-                                 cases_fft_axis)}[args.kernel]
+                                 cases_fft_axis),
+                    "rhs_pointwise": (None,
+                                      cases_rhs_pointwise)}[args.kernel]
+    plain = KERNELS[args.kernel].get("plain", "torch.fft")
+    if args.sweep and sweep is None:
+        raise SystemExit(f"--kernel {args.kernel} has no sweep")
     if args.sweep:
         bad = sweep(torch, libs[(list(libs)[-1][0], "full")], stream)
         for b in bad[:20]:
@@ -780,8 +839,8 @@ def main():
                 print(f"check {row} {shape} {key[0]} full: rel err "
                       f"{err:.3e}")
                 if err > 1e-5:
-                    raise SystemExit("the full kernel disagrees with "
-                                     "torch.fft")
+                    raise SystemExit(f"the full kernel disagrees with "
+                                     f"{plain}")
         order = list(libs.items())
         times = {k: [] for k in libs}
         lib_ms = [median_ms(torch, lib_fn, args.iters)]
@@ -793,12 +852,13 @@ def main():
             ms = times[key]
             print(f"time {row} {shape} {key[0]} {key[1]}: "
                   f"{ms[0]:.4f} / {ms[1]:.4f} ms, "
-                  f"{nb / min(ms) / 1e9:.3f} TB/s")
+                  f"{nb / min(ms) / 1e9:.3f} TB/s "
+                  f"({100 * nb / (min(ms) * 1e-3) / HBM:.1f}% of 3.35)")
             results.append(dict(row=row, shape=shape, src=key[0],
                                 variant=key[1], ms=ms, bytes=nb))
-        print(f"time {row} {shape} torch.fft: {lib_ms[0]:.4f} / "
+        print(f"time {row} {shape} {plain}: {lib_ms[0]:.4f} / "
               f"{lib_ms[1]:.4f} ms")
-        results.append(dict(row=row, shape=shape, src="torch.fft",
+        results.append(dict(row=row, shape=shape, src=plain,
                             variant="library", ms=lib_ms, bytes=nb))
     out = ROOT / "chiprun_out" / f"ab_{args.kernel}.json"
     out.parent.mkdir(exist_ok=True)
