@@ -15,7 +15,14 @@ over the group, with the layout changes around it written out:
 
 ``all_gather`` and ``all_reduce`` are the group's own collectives.  Every
 function takes a tensor or a tuple of tensors (the planar (re, im) pair),
-each leaf riding its own collective.  On the card these need a backend
+each leaf riding its own collective.
+
+The transposes and ``all_gather`` run inside the span
+``mpifft.transform.exchange`` (``utils.profiling``; the pipelined
+transpose opens one around its posts and one around each chunk's wait,
+leaving ``work_fn`` and ``pre_fn`` outside), which counts the bytes that
+leave this rank: (P − 1)/P of a transpose's send buffer, P − 1 copies of
+an all-gather's block.  On the card these need a backend
 that moves CUDA tensors (NCCL, one card per rank); gloo moves CPU tensors
 (the tests), and ``all_reduce`` of CUDA scalars.
 """
@@ -26,6 +33,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+from ..utils import profiling
 
 __all__ = ["transpose", "transpose_pipelined", "all_gather", "all_reduce"]
 
@@ -54,11 +63,22 @@ def _recv_merge(r, concat_axis: int):
     return r.reshape(s)
 
 
-def _post(v, group, split_axis: int):
+EXCHANGE = "mpifft.transform.exchange"
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _post(v, group, split_axis: int, sp):
+    """Post the all-to-all of one leaf; ``sp`` is the open exchange span
+    (None while tracing is off), which counts the blocks that leave."""
     P = dist.get_world_size(group)
     send = _send_view(v, P, split_axis)
     recv = torch.empty_like(send)
     work = dist.all_to_all_single(recv, send, group=group, async_op=True)
+    if sp is not None:
+        sp.add_bytes(_nbytes(send) * (P - 1) // P)
     return work, recv
 
 
@@ -67,12 +87,12 @@ def transpose(x, group, split_axis: int, concat_axis: int):
     ``group``; ``group`` None is a world of one (identity)."""
     if group is None:
         return x
-
-    def one(v):
-        work, recv = _post(v, group, split_axis)
-        work.wait()
-        return _recv_merge(recv, concat_axis)
-    return _leafwise(one, x)
+    with profiling.span(EXCHANGE) as sp:
+        def one(v):
+            work, recv = _post(v, group, split_axis, sp)
+            work.wait()
+            return _recv_merge(recv, concat_axis)
+        return _leafwise(one, x)
 
 
 def _chunk_bounds(n: int, k: int):
@@ -105,15 +125,18 @@ def transpose_pipelined(x, group, split_axis: int, concat_axis: int,
         return work_fn(transpose(pre_fn(x), group, split_axis, concat_axis))
     posted = []
     for start, size in bounds:
-        chunk = _leafwise(lambda v: v.narrow(pipeline_axis, start, size), x)
-        posted.append(_leafwise(lambda v: _post(v, group, split_axis),
-                                pre_fn(chunk)))
+        chunk = pre_fn(_leafwise(lambda v: v.narrow(pipeline_axis, start,
+                                                    size), x))
+        with profiling.span(EXCHANGE) as sp:
+            posted.append(_leafwise(lambda v: _post(v, group, split_axis,
+                                                    sp), chunk))
     outs = []
     for p in posted:
         leaves = p if isinstance(x, tuple) else (p,)
-        for work, _ in leaves:
-            work.wait()
-        got = tuple(_recv_merge(r, concat_axis) for _, r in leaves)
+        with profiling.span(EXCHANGE):
+            for work, _ in leaves:
+                work.wait()
+            got = tuple(_recv_merge(r, concat_axis) for _, r in leaves)
         outs.append(work_fn(got if isinstance(x, tuple) else got[0]))
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(vs, dim=pipeline_axis) for vs in zip(*outs))
@@ -125,13 +148,16 @@ def all_gather(x, group, axis: int):
     rank order (``lax.all_gather(..., tiled=True)``)."""
     if group is None:
         return x
-
-    def one(v):
-        v = v.contiguous()
-        parts = [torch.empty_like(v) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, v, group=group)
-        return torch.cat(parts, dim=axis)
-    return _leafwise(one, x)
+    with profiling.span(EXCHANGE) as sp:
+        def one(v):
+            v = v.contiguous()
+            P = dist.get_world_size(group)
+            parts = [torch.empty_like(v) for _ in range(P)]
+            dist.all_gather(parts, v, group=group)
+            if sp is not None:
+                sp.add_bytes(_nbytes(v) * (P - 1))
+            return torch.cat(parts, dim=axis)
+        return _leafwise(one, x)
 
 
 def all_reduce(t, group):

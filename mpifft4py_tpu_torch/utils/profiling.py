@@ -19,7 +19,16 @@ solvers and the transforms (every name starts with ``mpifft.``):
   transform kernels, so they fall here);
 * ``mpifft.transform.boundary`` — inside a transform, the conversions
   between the planar float32 pair and complex64 (``unpack_spectrum``,
-  ``pack_spectrum``) and the 3/2 rule's pad/truncate.
+  ``pack_spectrum``) and the 3/2 rule's pad/truncate;
+* ``mpifft.transform.exchange`` — inside a transform at P > 1, each
+  collective of ``parallel.collectives`` (``transpose`` with its send
+  buffer's copy and the received blocks' merge, ``transpose_pipelined``'s
+  posts and waits, ``all_gather``); at P == 1 none opens.  Its device time
+  is the time the calling stream waits for the exchange.
+
+Beside its times a span may count bytes (``add_bytes``): each exchange
+adds the bytes that leave this rank, the P − 1 blocks it sends, and
+``report()`` gives their total as the name's ``"bytes"``.
 
 A span records only while tracing is on: between ``enable()`` and
 ``disable()``, or while a ``torch.profiler`` session records (its active
@@ -81,14 +90,17 @@ _OFF = _Off()
 
 class _Totals:
     __slots__ = ("count", "host_s", "self_host_s", "device_s",
-                 "self_device_s")
+                 "self_device_s", "bytes")
 
     def __init__(self):
         self.count, self.host_s, self.self_host_s = 0, 0.0, 0.0
-        self.device_s = self.self_device_s = None
+        self.device_s = self.self_device_s = self.bytes = None
 
     def as_dict(self):
-        return {k: getattr(self, k) for k in self.__slots__}
+        """The totals; ``"bytes"`` only where a span of the name counted
+        bytes."""
+        return {k: getattr(self, k) for k in self.__slots__
+                if k != "bytes" or self.bytes is not None}
 
 
 class _Recorder:
@@ -140,10 +152,15 @@ _rec = _Recorder()
 
 class _Span:
     __slots__ = ("name", "parent", "root", "tree", "rf", "t0", "child_host",
-                 "ev0", "ev1", "child_dev")
+                 "ev0", "ev1", "child_dev", "nbytes")
 
     def __init__(self, name):
         self.name = name
+        self.nbytes = None
+
+    def add_bytes(self, n: int) -> None:
+        """Count ``n`` bytes to this span (the name's ``"bytes"``)."""
+        self.nbytes = (self.nbytes or 0) + int(n)
 
     def __enter__(self):
         st = _rec.stack
@@ -173,6 +190,8 @@ class _Span:
         t.count += 1
         t.host_s += dur
         t.self_host_s += dur - self.child_host
+        if self.nbytes is not None:
+            t.bytes = (t.bytes or 0) + self.nbytes
         if self.parent is not None:
             self.parent.child_host += dur
         elif self.tree:
@@ -183,7 +202,9 @@ class _Span:
 
 def span(name: str):
     """A context that records the span ``name`` while tracing is on (see
-    the module's docstring), and the shared no-op context otherwise."""
+    the module's docstring), and the shared no-op context otherwise.  It
+    enters as the span (``add_bytes`` counts bytes to it) when on, as None
+    when off."""
     if not (_enabled or torch.autograd._profiler_enabled()):
         return _OFF
     return _Span(name)
@@ -202,10 +223,11 @@ def disable() -> None:
 
 def report() -> dict:
     """{name: {"count", "host_s", "self_host_s", "device_s",
-    "self_device_s"}} of the spans that have ended since the last
-    ``reset()``, in seconds; the device fields are None where no span of
-    the name recorded CUDA events (the CPU).  Synchronises once on the
-    last recorded event."""
+    "self_device_s"[, "bytes"]}} of the spans that have ended since the
+    last ``reset()``, in seconds; the device fields are None where no span
+    of the name recorded CUDA events (the CPU); ``"bytes"`` is there where
+    a span of the name counted bytes.  Synchronises once on the last
+    recorded event."""
     _rec.fold(block=True)
     return {name: t.as_dict() for name, t in _rec.totals.items()}
 

@@ -398,3 +398,110 @@ def test_complex_leaf_under_rdma_raises(pool):
                          None, u)[0]
     assert name == "ValueError" and "rdma" in msg
     assert not jp3.supported_r2c(10)
+
+
+# -- 9. the benchmark's slab reference and its 4-card cell's entry, at P = 2 --
+
+def _div_free_state(shape, seed, energy=0.05):
+    """A seeded random divergence-free spectral state (3, N0, N1, Nf),
+    complex128, 2/3-rule masked, of Parseval energy ``energy``."""
+    n0, n1, n2 = shape
+    U = np.fft.rfftn(_rng(seed).standard_normal((3,) + shape), axes=(1, 2, 3))
+    k = (np.fft.fftfreq(n0, 1 / n0)[:, None, None],
+         np.fft.fftfreq(n1, 1 / n1)[None, :, None],
+         np.arange(n2 // 2 + 1)[None, None, :])
+    ksq = k[0] ** 2 + k[1] ** 2 + k[2] ** 2
+    div = sum(ki * Ui for ki, Ui in zip(k, U)) / np.where(ksq == 0, 1, ksq)
+    U = np.stack([Ui - ki * div for ki, Ui in zip(k, U)])
+    U *= ((np.abs(k[0]) < n0 / 3) & (np.abs(k[1]) < n1 / 3)
+          & (k[2] < n2 / 3))
+    w = np.where((k[2] == 0) | (k[2] == n2 // 2), 1.0, 2.0)
+    e = 0.5 * np.sum(w * np.abs(U) ** 2) / float(np.prod(shape)) ** 2
+    return U * np.sqrt(energy / e)
+
+
+def _packed_pair(U):
+    """The packed float32 pair of a Nyquist-free complex state."""
+    h = U.shape[-1] - 1
+    return (np.ascontiguousarray(U[..., :h].real, dtype=np.float32),
+            np.ascontiguousarray(U[..., :h].imag, dtype=np.float32))
+
+
+def test_ns3d_packed_matches_slab_reference_at_p2(pool):
+    """The port's packed NS3D at P = 2 (alltoall) against the benchmark's
+    float64 slab reference over the same ranks, 2 RK4 steps from a random
+    divergence-free state: 2e-5 of max (float32 transforms over 8
+    right-hand sides), and the slab conversion of the packed state equal to
+    the one-process conversion."""
+    U = _div_free_state(PSHAPE, 41)
+    got = pool.run("ns3d_packed_vs_slab_reference", PSHAPE, _packed_pair(U),
+                   2, 0.0005, 0.001)
+    gap, top, conv = (max(r[i] for r in got) for i in range(3))
+    assert gap <= 2e-5 * top
+    assert conv <= 1e-7 * np.abs(U).max()
+
+
+def test_slab_reference_matches_one_process_at_p2(pool):
+    """The benchmark's float64 slab reference at P = 2 against its
+    one-process NS3D: 2 RK4 steps from a random divergence-free state and
+    the Taylor–Green state within 1e-12 of max, the energies alike."""
+    U = _div_free_state(PSHAPE, 43)
+    got = pool.run("ns3d_slab_vs_one_process", PSHAPE, U, 2, 0.0005, 0.001)
+    top = max(r[2] for r in got)
+    assert max(r[0] for r in got) <= 1e-12 * top
+    assert max(r[1] for r in got) <= 1e-12 * np.prod(PSHAPE)
+    e_slab, e_one = got[0][3], got[0][4]
+    assert abs(e_slab - e_one) <= 1e-12 * e_one
+    assert all(r[3] == e_slab for r in got)
+
+
+def test_slab_entry_state_matches_one_process(pool):
+    """The 4-card cell's entry at P = 2, each rank adding its k1 block of
+    the seed's perturbation: its global initial state against the
+    one-card entry's (``ns3d_run``) in one process."""
+    import importlib.util
+    import json
+    import os
+    import sys
+    from torch_dist_tasks import BENCH
+    if BENCH not in sys.path:
+        sys.path.append(BENCH)
+    with open(os.path.join(BENCH, "configs", "tgv1600_1024.json")) as f:
+        cfg = dict(json.load(f), N=list(PSHAPE), P=2,
+                   perturbation={"kmax": 2, "amplitude": 0.01})
+    with open(os.path.join(BENCH, "traffic", "slab_p4.json")) as f:
+        traffic = json.load(f)
+    seed = 2 ** 31 + 2 ** 20 + 17
+    got = pool.run("slab_entry_state", cfg, traffic, seed)[0]
+    spec = importlib.util.spec_from_file_location(
+        "entry_ns3d_run", os.path.join(BENCH, "entries", "ns3d_run.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    want = mod.Entry(cfg, traffic, seed, "cpu").state.numpy()
+    _close(got, want, 1e-6)
+    # the perturbation is there, not only the vortex
+    tg = mod.Entry(cfg, traffic, seed + 1, "cpu").state.numpy()
+    assert np.abs(tg - want).max() > 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("communication,spans", [("alltoall", 1),
+                                                  ("pipelined", 8)])
+def test_exchange_counter_at_p2(pool, communication, spans):
+    """The exchange span's byte counter over one packed RK4 step at P = 2:
+    in each of 4 right-hand sides 3 transposes of a (re, im) pair of
+    3-stacks, half of each leaving the rank, and one all-gather of plane
+    k2 = 0's pair; none recorded with tracing off.  A transpose opens one
+    span, a pipelined one (4 chunks) one around each chunk's post and one
+    around each chunk's wait."""
+    P, (n0, n1, n2) = 2, PSHAPE
+    pair = _packed_pair(_div_free_state(PSHAPE, 47))
+    leaf = 3 * n0 * (n1 // P) * (n2 // 2) * 4
+    plane = 3 * n0 * (n1 // P) * 4
+    want = 4 * (3 * 2 * leaf * (P - 1) // P + 2 * plane * (P - 1))
+    for ex, names in pool.run("exchange_counter", PSHAPE, pair,
+                              communication, True):
+        assert ex == (want, 4 * (3 * spans + 1))
+        assert "mpifft.solver.step" in names
+    for ex, names in pool.run("exchange_counter", PSHAPE, pair,
+                              communication, False):
+        assert ex is None and names == []

@@ -238,6 +238,107 @@ def family_and_line_raise(shape):
     return out
 
 
+# -- the benchmark's slab reference and entry (benchmarks_torch/) -------------
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "benchmarks_torch")
+
+
+def _bench():
+    """The benchmark's modules (``reference``, ``entries``) importable."""
+    import sys
+    if BENCH not in sys.path:
+        sys.path.append(BENCH)
+
+
+def ns3d_packed_vs_slab_reference(shape, pair, n_steps, nu, dt):
+    """The port's packed NS3D at P > 1 (alltoall) and the benchmark's
+    float64 slab reference over the same group, ``n_steps`` RK4 steps from
+    the global packed ``pair``: (largest gap, largest reference
+    coefficient) of this rank's block, and the largest gap of the slab
+    ``packed_to_complex`` against the one-process conversion."""
+    _bench()
+    from mpifft4py_tpu_torch.models import NavierStokes3D
+    from mpifft4py_tpu_torch.utils.transfer import packed_state_from_reference
+    from reference.layouts import packed_to_complex
+    from reference.ns3d_slab import NS3DSlab, to_complex
+    rank, P = _rank()
+    group = dist.group.WORLD
+    FFT = _fft("R2C", shape, "single", "alltoall")
+    s = NavierStokes3D(FFT, nu, dt, spectral_layout="packed")
+    S = packed_state_from_reference(pair, FFT)
+    U = to_complex(S, group)
+    blk = FFT.local_spectral_slices("complex")[1]
+    whole = packed_to_complex(torch.from_numpy(np.stack(pair)))
+    conv = float((U - whole[:, :, blk]).abs().max())
+    out = s.run(S, n_steps)
+    ref = NS3DSlab(shape, [TAU] * 3, nu, dt, "2/3-rule", "float64", "cpu",
+                   group)
+    for _ in range(n_steps):
+        U = ref.step(U)
+    gap = float((to_complex(out, group) - U).abs().max())
+    return gap, float(U.abs().max()), conv
+
+
+def ns3d_slab_vs_one_process(shape, U, n_steps, nu, dt):
+    """The benchmark's float64 slab reference at P > 1 against its
+    one-process ``NS3D`` on the global complex128 state ``U``: the largest
+    gaps of this rank's block after ``n_steps`` RK4 steps and of its
+    Taylor–Green block, the largest coefficient, and both energies."""
+    _bench()
+    from reference.ns3d import NS3D
+    from reference.ns3d_slab import NS3DSlab
+    rank, P = _rank()
+    n1 = shape[1] // P
+    blk = slice(rank * n1, (rank + 1) * n1)
+    args = (shape, [TAU] * 3, nu, dt, "2/3-rule", "float64", "cpu")
+    slab, one = NS3DSlab(*args, dist.group.WORLD), NS3D(*args)
+    tg = float((slab.taylor_green("cpu")
+                - one.taylor_green("cpu")[:, :, blk]).abs().max())
+    U = torch.from_numpy(U)
+    Ub = U[:, :, blk].contiguous()
+    for _ in range(n_steps):
+        Ub, U = slab.step(Ub), one.step(U)
+    return (float((Ub - U[:, :, blk]).abs().max()), tg,
+            float(U.abs().max()), slab.energy(Ub), one.energy(U))
+
+
+def slab_entry_state(cfg, traffic, seed):
+    """The global initial state of the benchmark's ``ns3d_slab`` entry
+    built on the group's ranks."""
+    _bench()
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "entry_ns3d_slab", os.path.join(BENCH, "entries", "ns3d_slab.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    e = mod.Entry(cfg, traffic, seed, "cpu", comm=dist.group.WORLD)
+    return e.solver.FFT.gather(e.state)
+
+
+def exchange_counter(shape, pair, communication, tracing):
+    """One packed NS3D RK4 step at P > 1 with tracing on or off: the
+    exchange span's (bytes, count), None where it did not record, and the
+    names of the spans that did."""
+    from mpifft4py_tpu_torch.models import NavierStokes3D
+    from mpifft4py_tpu_torch.utils import profiling
+    from mpifft4py_tpu_torch.utils.transfer import packed_state_from_reference
+    FFT = _fft("R2C", shape, "single", communication)
+    s = NavierStokes3D(FFT, 0.01, 0.001, spectral_layout="packed")
+    S = packed_state_from_reference(pair, FFT)
+    profiling.reset()
+    if tracing:
+        profiling.enable()
+    try:
+        s.step(S)
+    finally:
+        profiling.disable()
+    r = profiling.report()
+    profiling.reset()
+    ex = r.get("mpifft.transform.exchange")
+    return (None if ex is None else (ex["bytes"], ex["count"])), sorted(r)
+
+
 def store_path(tmpdir, name):
     return os.path.join(str(tmpdir), name)
 
