@@ -378,12 +378,18 @@ def test_ns3d_rk4_2x2_matches_reference(pool, layout):
     assert e < 0.5 * np.mean(np.sum(u0 * u0, axis=0))
 
 
+@pytest.mark.slow
 def test_ns3d_wide_steps_match_reference_wide(pool, ref_pallas_dist):
     """2 RK4 steps of the port's WIDE packed layout on the 2×2 pencil under
     rdma against the reference's packed steps on its 2×2 pencil (rows 4/5,
     the P2 stage, the joint stage and the wide purify; its Pallas kernels
     in interpret mode take ~8 s a step here, hence 2 steps), both unpacked
-    to the complex layout: 2e-5 rel L2."""
+    to the complex layout: 2e-5 rel L2.  It is ``slow`` because the
+    reference's interpret-mode packed steps take 1.5–3.5 minutes on the
+    CPU (alone, and among six xdist workers); the port's call it makes
+    (``pencil_ns3d_steps`` on PSHAPE, "packed", "rdma", P1 = 2, the same
+    state, ν and dt) is checked in every run by
+    ``test_ns3d_rk4_2x2_matches_reference[packed]``."""
     kw = dict(nu=0.0005, dt=0.001)
     U = _ns_state(PSHAPE)
     JW = JNS(_jfft("R2C", PSHAPE, "single", 2), dealias="2/3-rule",
