@@ -1,7 +1,9 @@
 // The bulk-copy tile ring of the persistent row kernels (fft_last.cu,
 // planar_rfft.cu): 1-D bulk copies (TMA, cp.async.bulk) between global
 // memory and a slot in shared memory, an mbarrier a slot, and the launch of
-// a persistent grid (the mbarriers and the launch also serve fft_axis.cu).
+// a persistent grid; and the column-tile copies by cp.async of the column
+// kernels (fft_axis.cu, curl_ifft_x.cu), which share the mbarriers and the
+// launch.
 //
 // A tile is one contiguous run of values in each of one or two planes.
 // Bulk copies need 16-byte aligned addresses and sizes: where a run does
@@ -140,6 +142,62 @@ __device__ void store_tile(float* y0, float* y1, long long v0, int len,
                slot + PL + (r1.mis + r1.head) * (kB / 4), r1.bulk * kB);
   }
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// ---- column tiles by cp.async (fft_axis.cu, curl_ifft_x.cu) -------------
+//
+// A column tile of a plane is n row segments of w <= T values of kB bytes,
+// segment r at value g0 + r * pitch (pitch = the row length in global
+// memory), landing at slot index r * T + c (T a power of two, T * kB a
+// multiple of 16).  Where every segment starts on the 16-byte grid and
+// spans whole 16-byte chunks, each thread copies its chunks in one
+// cp.async each; otherwise (row 19's 1032-byte rows, views that start
+// inside a buffer, a ragged end) value by value, neighbouring threads on
+// neighbouring values, so each warp's copies stay coalesced.  A thread's
+// arrival on the slot's mbarrier (initialised with blockDim.x arrivals)
+// fires when its copies have landed.
+
+// The copy of kB bytes (4, 8 or 16; both addresses kB-aligned), async.
+template <int kB>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (kB == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(kB) : "memory");
+}
+
+// One arrival on bar once the thread's earlier cp.async copies have landed
+// (counted among the mbarrier's arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Calls f(e, g, c) for the copies of one plane's tile the thread owns:
+// slot index e = r * T + c, global index g = g0 + r * pitch + c (floats);
+// kWhole: c steps over 16-byte chunks, else over single values.
+template <int kB, bool kWhole, typename F>
+__device__ __forceinline__ void for_copies(long long g0, long long pitch,
+                                           int n, int w, int lgT, F f) {
+  constexpr int kF = kB / 4, kLgU = kWhole ? (kB == 4 ? 2 : 1) : 0;
+  const int lgC = lgT - kLgU;  // copies a row
+  for (int i = threadIdx.x; i < n << lgC; i += blockDim.x) {
+    const int r = i >> lgC;
+    const int c = (i & ((1 << lgC) - 1)) << kLgU;
+    if (c < w) f((r << lgT) + c, (g0 + r * pitch + c) * kF);
+  }
+}
+
+// True when the plane's tile goes in whole 16-byte chunks: every segment
+// on the grid (row 0 on it, the pitch a multiple of 16 bytes) and w values
+// a multiple of 16 bytes.
+template <int kB>
+__device__ __forceinline__ bool whole_chunks(const float* x, long long g0,
+                                             long long pitch, int w) {
+  return (pitch * kB) % 16 == 0 && (w * kB) % 16 == 0 &&
+         (reinterpret_cast<uintptr_t>(x + g0 * (kB / 4)) & 15) == 0;
 }
 
 // Launches a persistent kernel: as many blocks as are resident at once (the

@@ -63,63 +63,10 @@ namespace {
 
 using namespace bulkring;
 
-// A column tile of a plane is n row segments of w <= T values of kB bytes,
-// segment r at value g0 + r * pitch (pitch = the row length in global
-// memory), landing at slot index r * T + c (T a power of two, T * kB a
-// multiple of 16).  Where every segment starts on the 16-byte grid and
-// spans whole 16-byte chunks, each thread copies its chunks in one
-// cp.async each; otherwise (row 19's 1032-byte rows, views that start
-// inside a buffer, a ragged end) value by value, neighbouring threads on
-// neighbouring values, so each warp's copies stay coalesced.  A thread's
-// arrival on the slot's mbarrier (initialised with blockDim.x arrivals)
-// fires when its copies have landed.
-
-// The copy of kB bytes (4, 8 or 16; both addresses kB-aligned), async.
-template <int kB>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (kB == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
-                 :: "r"(smem_u32(dst)), "l"(src), "n"(kB) : "memory");
-}
-
-// One arrival on bar once the thread's earlier cp.async copies have landed
-// (counted among the mbarrier's arrivals).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Calls f(e, g, c) for the copies of one plane's tile the thread owns:
-// slot index e = r * T + c, global index g = g0 + r * pitch + c (floats);
-// kWhole: c steps over 16-byte chunks, else over single values.
-template <int kB, bool kWhole, typename F>
-__device__ __forceinline__ void for_copies(long long g0, long long pitch,
-                                           int n, int w, int lgT, F f) {
-  constexpr int kF = kB / 4, kLgU = kWhole ? (kB == 4 ? 2 : 1) : 0;
-  const int lgC = lgT - kLgU;  // copies a row
-  for (int i = threadIdx.x; i < n << lgC; i += blockDim.x) {
-    const int r = i >> lgC;
-    const int c = (i & ((1 << lgC) - 1)) << kLgU;
-    if (c < w) f((r << lgT) + c, (g0 + r * pitch + c) * kF);
-  }
-}
-
-// True when the plane's tile goes in whole 16-byte chunks: every segment
-// on the grid (row 0 on it, the pitch a multiple of 16 bytes) and w values
-// a multiple of 16 bytes.
-template <int kB>
-__device__ __forceinline__ bool whole_chunks(const float* x, long long g0,
-                                             long long pitch, int w) {
-  return (pitch * kB) % 16 == 0 && (w * kB) % 16 == 0 &&
-         (reinterpret_cast<uintptr_t>(x + g0 * (kB / 4)) & 15) == 0;
-}
-
-// Every thread: copies its share of the tile of x0 (and, if kTwo, x1,
-// landing PL floats further) into `slot` and arrives on `bar` once it has
-// landed.  The caller has ordered the slot's earlier reads (a barrier).
+// Every thread: copies its share of the column tile (bulk_ring.cuh) of x0
+// (and, if kTwo, x1, landing PL floats further) into `slot` and arrives on
+// `bar` once it has landed.  The caller has ordered the slot's earlier
+// reads (a barrier).
 template <int kB, bool kTwo>
 __device__ void load_cols(const float* x0, const float* x1, long long g0,
                           long long pitch, int n, int w, int lgT, float* slot,

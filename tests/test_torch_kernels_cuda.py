@@ -104,10 +104,15 @@ def _kvecs(shape, device):
 # tiles (n0 = 384/512, 1024), and a ragged last tile (Q = 15 < T)
 PACKED = [(3, 16, 16, 128), (3, 256, 4, 128), (3, 384, 3, 64),
           (3, 512, 4, 128), (3, 1024, 2, 128), (3, 48, 5, 3)]
+# and for the curl's persistent walk: blocks that walk several tiles (Q on
+# the 16-byte grid, and Q odd: rows off it, a ragged last tile), radix 5,
+# n = 1024's widened tiles
+CURL = PACKED + [(3, 512, 64, 129), (3, 512, 63, 129), (3, 320, 8, 65),
+                 (3, 1024, 8, 128)]
 
 
 @pytest.mark.parametrize("with_state", [False, True])
-@pytest.mark.parametrize("shape", PACKED)
+@pytest.mark.parametrize("shape", CURL)
 def test_curl_ifft_x_matches_twin(cuda, shape, with_state):
     ur, ui = _f32(shape, cuda, 1), _f32(shape, cuda, 2)
     k = _kvecs(shape[1:], cuda)[:3]
@@ -130,7 +135,7 @@ def test_fft_x_epilogue_matches_twin(cuda, shape):
 
 
 @pytest.mark.parametrize("with_state", [False, True])
-@pytest.mark.parametrize("shape", PACKED)
+@pytest.mark.parametrize("shape", CURL)
 def test_curl_ifft_x_biot_savart_matches_twin(cuda, shape, with_state):
     ur, ui = _f32(shape, cuda, 1), _f32(shape, cuda, 2)
     k = _kvecs(shape[1:], cuda)[:3]

@@ -3,13 +3,14 @@
 fft_last.cu``, rows 10 and 20), the even-n r2c (``ops/csrc/
 planar_rfft.cu``'s ``planar_rfft_kernel``, rows 8 and 21), the packed
 r2c (rows 4 and 17: ``packed_rfft_launch``/``packed_rfft_zdif_launch``,
-wherever the source tree defines them) and the c2c along a non-last axis
-(``ops/csrc/fft_axis.cu``, rows 1 and 19); and of the complex layout's
+wherever the source tree defines them), the c2c along a non-last axis
+(``ops/csrc/fft_axis.cu``, rows 1 and 19) and the packed curl with the x
+inverse (``ops/csrc/curl_ifft_x.cu``, row 11); and of the complex layout's
 pointwise right-hand side (``ops/csrc/rhs_pointwise.cu``, port-only rows
 P1-P3) against its eager twins.
 
     python3 tools/ab_fft_last.py [--kernel fft_last|planar_rfft|packed_rfft|
-                                  fft_axis|rhs_pointwise]
+                                  fft_axis|curl_ifft_x|rhs_pointwise]
                                  [--src DIR[:FLAGS] ...] [--iters 30]
                                  [--edit 'LABEL:REGEX=>REPL' ...] [--sweep]
 
@@ -17,8 +18,8 @@ For each ``--src`` directory (a copy of ``mpifft4py_tpu_torch/ops/csrc``;
 default the package's own; after a colon, extra nvcc flags separated by
 commas, e.g. ``csrc:-lineinfo``), builds libraries from the kernel's
 sources (``fft_last.cu``, ``planar_rfft.cu``, ``fft_axis.cu``,
-``rhs_pointwise.cu``, or ``packed_rfft.cu`` and ``planar_rfft.cu``
-together, with every ``*.cuh`` of
+``curl_ifft_x.cu``, ``rhs_pointwise.cu``, or ``packed_rfft.cu`` and
+``planar_rfft.cu`` together, with every ``*.cuh`` of
 the directory beside them) with one ``nvcc`` each, all started together, under
 ``build/ab_<kernel>/``:
 
@@ -59,6 +60,12 @@ call on the same data:
   along axis 1, the dense 256^3 chain's y stage), NS2D 1024^2's x stage
   ((1024, 512), axis 0) and the widened plans n = 640 and 1016 on (n,
   32768), axis 0;
+- ``curl_ifft_x``: row 11 with the state (``with_state``) at the packed
+  step's (3, 512, 512, 256) (the 512^3 cell's), (3, 256, 256, 128) and
+  (3, 320, 320, 640) (radix 5, the mixed instance), beside its twin
+  (``ops.fft3d.curl_ifft_x_ref``) in place of ``torch.fft``, the bytes
+  those of ``benchmarks_torch/work/curl_ifft_x.py`` (its bound is the
+  bytes': the share of 3.35 TB/s is the share of the bound);
 - ``rhs_pointwise``: at the 512^3 cells' shapes, beside the eager twin
   (``ops.fft3d.rhs_*_ref``, the expressions ``NavierStokes3D.rhs`` ran
   before the kernels) in place of ``torch.fft``: the curl i K x U and the
@@ -82,7 +89,10 @@ input and spectrum aligned and one value in, round trips through the
 library's packed c2r; ``fft_axis`` at every ``supported_c2c`` n in 2..1024
 on (pre, n, post) with pre in {1, 3} and post in {1, 5, 129, 4096}, input
 and output aligned and 1-3 values into larger buffers (separate offsets
-for the two); ``rhs_pointwise`` has no sweep.  Prints the card's name and
+for the two); ``curl_ifft_x`` at every ``supported_c2c`` n in 2..1024
+on (3, n, 3, 5) (15 columns: a ragged tile, rows off the 16-byte grid)
+and (3, n, 4, 8), with and without the state and ``biot_savart``, against
+the twin (1e-5); ``rhs_pointwise`` has no sweep.  Prints the card's name and
 power limit, one line a (shape, variant), and writes the numbers to
 ``chiprun_out/ab_<kernel>.json``.  Needs a CUDA card and ``nvcc``.
 """
@@ -114,6 +124,11 @@ STAGES_R2C = [(r"(packed_rfft_kernel\(.*?)fftblock::block_fft\w*<[^;{]*\);",
 UNTANGLE_R2C = [(r"packedz::untangle\(s, pitch, rho, k, h, tw_n\)",
                  "s[k * pitch + rho]"),
                 (r"untangle_pair\(Z, Zf, [^;]*\);", "Xk = Z; Xf = Zf;")]
+# the c2c kernels' copy-only cut: the block_fft... call, a statement or
+# the condition of the store pass that runs when the last stage did not
+# store
+STAGES_C2C = [[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
+               (r"!fftblock::block_fft\w*<[^;{]*\)\)", "true)")]]
 _PACKED = (_P,) * 5 + (_L, _I, _P)
 HBM = 3.35e12                 # H100 SXM HBM3, bytes/s
 NU = 0.000625                 # the 512^3 cells' viscosity
@@ -125,11 +140,7 @@ KERNELS = {
         sources=("fft_last.cu",),
         sigs={"fft_last_launch": (_P,) * 5 + (_L, _I, _I, _F, _P),
               "fft_last_c64_launch": (_P, _P, _P, _L, _I, _I, _P)},
-        # the block_fft... call: a statement, or the condition of the store
-        # pass that runs when the last stage did not store
-        variants={"copy": [[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
-                            (r"!fftblock::block_fft\w*<[^;{]*\)\)",
-                             "true)")]]}),
+        variants={"copy": STAGES_C2C}),
     "planar_rfft": dict(
         sources=("planar_rfft.cu",),
         sigs={"planar_rfft_launch": (_P,) * 5 + (_L, _I, _I, _I, _I, _F, _P),
@@ -149,9 +160,11 @@ KERNELS = {
         sources=("fft_axis.cu",),
         sigs={"fft_axis_launch": (_P,) * 5 + (_L, _I, _L, _I, _P),
               "fft_axis_c64_launch": (_P, _P, _P, _L, _I, _L, _I, _P)},
-        variants={"copy": [[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
-                            (r"!fftblock::block_fft\w*<[^;{]*\)\)",
-                             "true)")]]}),
+        variants={"copy": STAGES_C2C}),
+    "curl_ifft_x": dict(
+        sources=("curl_ifft_x.cu",),
+        sigs={"curl_ifft_x_launch": _build._SIGNATURES["curl_ifft_x_launch"]},
+        variants={"copy": STAGES_C2C}, plain="twin"),
     "rhs_pointwise": dict(
         sources=("rhs_pointwise.cu",),
         sigs={name: _build._SIGNATURES[name]
@@ -565,6 +578,98 @@ def sweep_fft_axis(torch, lib, stream):
     return bad
 
 
+def curl_io(torch, shape, gen):
+    """A random (3, n, n1, h) state pair on the card and its 1-D integer
+    wavenumbers (k0, k1 in fft order, k2 = 0..h-1)."""
+    from mpifft4py_tpu_torch.utils import spectral
+    ur, ui = (torch.randn(shape, generator=gen, device="cuda")
+              for _ in "ri")
+    k = spectral.factored_wavenumbers(shape[1:3], None, shape[3],
+                                      device="cuda")
+    return ur, ui, k
+
+
+def curl_out(torch, shape, with_state):
+    """The output pair and the twiddles of curl_ifft_x on a (3, n, n1, h)
+    state."""
+    _, n, n1, h = shape
+    yr = torch.empty((6 if with_state else 3, n, n1, h), device="cuda")
+    return yr, torch.empty_like(yr), twiddles(torch, n, n, 1)
+
+
+def curl_call(lib, stream, ur, ui, k, out, with_state, bs):
+    """The library's curl_ifft_x of the pair into out = (yr, yi, tw); its
+    return code."""
+    _, n, n1, h = ur.shape
+    return lib.curl_ifft_x_launch(ur.data_ptr(), ui.data_ptr(),
+                                  *(v.data_ptr() for v in k),
+                                  *(o.data_ptr() for o in out), n, n1, h,
+                                  int(with_state), int(bs), stream)
+
+
+def sweep_curl_ifft_x(torch, lib, stream):
+    """The curl with the x inverse at every supported_c2c n in 2..1024 on
+    (3, n, 3, 5) and (3, n, 4, 8), with and without the state and
+    biot_savart, against the twin (1e-5 of max |twin|).  Returns the
+    failures."""
+    from mpifft4py_tpu_torch.ops import fft3d as p3
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bad, worst, count = [], 0.0, 0
+    ns = [n for n in range(2, 1025) if p3.supported_c2c(n)]
+    for n in ns:
+        for n1, h in ((3, 5), (4, 8)):
+            ur, ui, k = curl_io(torch, (3, n, n1, h), gen)
+            for ws in (False, True):
+                out = curl_out(torch, ur.shape, ws)
+                for bs in (False, True):
+                    rc = curl_call(lib, stream, ur, ui, k, out, ws, bs)
+                    ref = p3.curl_ifft_x_ref(ur, ui, *k, ws, bs)
+                    torch.cuda.synchronize()
+                    err = rel(torch.complex(*out[:2]), torch.complex(*ref))
+                    worst, count = max(worst, err), count + 1
+                    if rc or not err <= 1e-5:
+                        bad.append(f"n={n} ({n1}, {h}) with_state={ws} "
+                                   f"biot_savart={bs}: rc {rc} rel err "
+                                   f"{err:.3e}")
+    print(f"sweep: {len(ns)} supported_c2c n x 2 shapes x with_state x "
+          f"biot_savart ({count} cases); worst {worst:.3e}; {len(bad)} "
+          f"failures")
+    return bad
+
+
+def cases_curl_ifft_x(torch, dev, gen, stream):
+    """The same for row 11 with the state at (3, 512, 512, 256), (3, 256,
+    256, 128) and (3, 320, 320, 640) (the packed step at (320, 320, 1280):
+    radix 5, the mixed instance), its twin in place of torch.fft, the bytes
+    from benchmarks_torch/work/curl_ifft_x.py."""
+    import importlib.util
+    from mpifft4py_tpu_torch.ops import fft3d as p3
+    sys.path.insert(0, str(ROOT / "benchmarks_torch"))
+    spec = importlib.util.spec_from_file_location(
+        "work_curl_ifft_x", ROOT / "benchmarks_torch" / "work" /
+        "curl_ifft_x.py")
+    work = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(work)
+    out = []
+    for shape in ((3, 512, 512, 256), (3, 256, 256, 128),
+                  (3, 320, 320, 640)):
+        _, n, n1, h = shape
+        ur, ui, k = curl_io(torch, shape, gen)
+        y = curl_out(torch, shape, True)
+
+        def call(lib, ur=ur, ui=ui, k=k, y=y):
+            return curl_call(lib, stream, ur, ui, k, y, True, False)
+
+        def twin(ur=ur, ui=ui, k=k):
+            return p3.curl_ifft_x_ref(ur, ui, *k, True)
+
+        def got(y=y, twin=twin):
+            return torch.complex(*y[:2]), torch.complex(*twin())
+        nb = work.work((None,) * 8 + (n, n1, h, 1, 0))[0]
+        out.append(("row 11", f"{shape} with_state", call, got, twin, nb))
+    return out
+
+
 def cases_fft_last(torch, dev, gen, stream):
     """(row, shape, call(lib), got() -> (kernel's, torch.fft's), torch.fft
     call, bytes) at rows 10, 10 (n = 384) and 20."""
@@ -812,6 +917,8 @@ def main():
                                     cases_packed_rfft),
                     "fft_axis": (sweep_fft_axis,
                                  cases_fft_axis),
+                    "curl_ifft_x": (sweep_curl_ifft_x,
+                                    cases_curl_ifft_x),
                     "rhs_pointwise": (None,
                                       cases_rhs_pointwise)}[args.kernel]
     plain = KERNELS[args.kernel].get("plain", "torch.fft")
