@@ -19,7 +19,13 @@ kernel in modes "project" and "curl", each writing its half of one
 (2, 6, …) increment.  The reference's sequenced right-hand side for
 512-class grids (``_rhs_packed_seq``, which keeps four physical stacks off
 a 16 GB chip) and its fold integrator path are not ported (ROADMAP.md
-queue 1 item 5).
+queue 1 item 5): the stacked path holds 512³ on an 80 GB card.
+
+Both layouts open two spans a right-hand side (``utils.profiling``):
+``mpifft.solver.momentum`` around P[F̂(u × ω + j × b)] − ν k² û and
+``mpifft.solver.induction`` around i K × F̂(u × b) − η k² b̂, each
+holding its forward transform; the inverses of the state and the curls
+lie outside both.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Optional
 import torch
 
 from ..ops.fft3d import cross, inv_ksq, kcross, kdot, kvecs
-from ..utils import spectral
+from ..utils import profiling, spectral
 from .navier_stokes import SpectralSolver
 
 
@@ -81,17 +87,18 @@ class MHD3D(SpectralSolver):
         WJ = self._bwd_nl(torch.cat([1j * kcross(K, U_hat),
                                      1j * kcross(K, B_hat)]))
         U, B, W, J = UB[:3], UB[3:], WJ[:3], WJ[3:]
-        # u × ω + j × b (momentum) and u × b (the electromotive force)
-        F_hat = self._fwd(torch.cat([cross(U, W) + cross(J, B),
-                                     cross(U, B)]))
-        del UB, WJ, U, B, W, J
-        Fu_hat, Fb_hat = F_hat[:3], F_hat[3:]
         ksq = spectral.ksq(k0, k1, k2)
-        div = kdot(K, Fu_hat) * inv_ksq(k0, k1, k2)
-        dU = (Fu_hat - torch.stack([K[0] * div, K[1] * div, K[2] * div])
-              - (self.nu * ksq)[None] * U_hat)
-        # induction: i K × F̂(u × b) is divergence-free by construction
-        dB = 1j * kcross(K, Fb_hat) - (self.eta * ksq)[None] * B_hat
+        with profiling.span("mpifft.solver.momentum"):
+            # P[F̂(u × ω + j × b)] − ν k² û
+            Fu_hat = self._fwd(cross(U, W) + cross(J, B))
+            div = kdot(K, Fu_hat) * inv_ksq(k0, k1, k2)
+            dU = (Fu_hat - torch.stack([K[0] * div, K[1] * div, K[2] * div])
+                  - (self.nu * ksq)[None] * U_hat)
+        del WJ, W, J, Fu_hat
+        with profiling.span("mpifft.solver.induction"):
+            # i K × F̂(u × b) − η k² b̂: divergence-free by construction
+            Fb_hat = self._fwd(cross(U, B))
+            dB = 1j * kcross(K, Fb_hat) - (self.eta * ksq)[None] * B_hat
         return torch.cat([dU, dB])
 
     def rhs_packed(self, UBr, UBi, k0, k1, k2, m0, m1, m2):
@@ -106,10 +113,12 @@ class MHD3D(SpectralSolver):
         B, J = self._bwd_state_curl_pk(Br, Bi, k0, k1, k2)   # j = iK × b̂
         dS = torch.empty((2,) + tuple(UBr.shape), dtype=UBr.dtype,
                          device=UBr.device)
-        self._nl_fwd_epilogue_pk(U, W, Ur, Ui, kargs, "project", self.nu,
-                                 C=J, D=B, out=dS[:, :3])
-        self._nl_fwd_epilogue_pk(U, B, Br, Bi, kargs, "curl", self.eta,
-                                 out=dS[:, 3:])
+        with profiling.span("mpifft.solver.momentum"):
+            self._nl_fwd_epilogue_pk(U, W, Ur, Ui, kargs, "project", self.nu,
+                                     C=J, D=B, out=dS[:, :3])
+        with profiling.span("mpifft.solver.induction"):
+            self._nl_fwd_epilogue_pk(U, B, Br, Bi, kargs, "curl", self.eta,
+                                     out=dS[:, 3:])
         return dS
 
     # -- diagnostics ------------------------------------------------------------------

@@ -11,6 +11,9 @@ solvers and the transforms (every name starts with ``mpifft.``):
 * ``mpifft.solver.rhs`` — one right-hand side; its self time is the
   pointwise work outside the transforms (curl, cross product, projection,
   viscous term, forcing);
+* ``mpifft.solver.momentum`` / ``.induction`` — inside an MHD right-hand
+  side, its two halves, each with its forward transform:
+  P[F̂(u × ω + j × b)] − ν k² û and i K × F̂(u × b) − η k² b̂;
 * ``mpifft.solver.monitor`` — the energy logged every k steps;
 * ``mpifft.transform.forward`` / ``.backward`` — every call that runs a 3D
   transform: the slab's and the pencil's ``fftn``/``ifftn`` and field
