@@ -46,11 +46,17 @@ def _close(got, ref):
         assert float((g - r).abs().max()) <= RTOL * float(r.abs().max())
 
 
+# the last five: rows off the 16-byte grid (257 columns: 1028-byte rows, the
+# 3/2 rule's y stage) at n = 512 and 768 with a last tile of one column,
+# ragged last tiles of 5 and 4 columns, and an aligned ragged tile (264
+# columns at n = 768: 33 tiles of 8)
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("shape,axis", [((4, 16, 8), 1), ((384, 6), 0),
                                         ((3, 256, 128), 1), ((256, 4096), 0),
                                         ((2, 768, 33), 1), ((1024, 64), 0),
-                                        ((24, 5), 0)])
+                                        ((24, 5), 0), ((3, 512, 257), 1),
+                                        ((2, 768, 257), 1), ((2, 768, 261), 1),
+                                        ((5, 512, 12), 1), ((2, 768, 264), 1)])
 def test_fft_axis_matches_twin(cuda, shape, axis, inverse):
     xr, xi = _f32(shape, cuda, 1), _f32(shape, cuda, 2)
     before = p3.LAUNCHES["fft_axis"]

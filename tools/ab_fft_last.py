@@ -13,6 +13,7 @@ P1-P3) against its eager twins.
                                   fft_axis|curl_ifft_x|rhs_pointwise]
                                  [--src DIR[:FLAGS] ...] [--iters 30]
                                  [--edit 'LABEL:REGEX=>REPL' ...] [--sweep]
+                                 [--only REGEX]
 
 For each ``--src`` directory (a copy of ``mpifft4py_tpu_torch/ops/csrc``;
 default the package's own; after a colon, extra nvcc flags separated by
@@ -26,9 +27,11 @@ the directory beside them) with one ``nvcc`` each, all started together, under
 - ``full``: the sources as they are;
 - ``copy``: the same sources with the kernel's ``fftblock::block_fft...``
   call cut out (and, for the r2c kernels, its untangle replaced by the
-  spectrum's own values), so the kernel only moves each tile in (global ->
-  shared) and back out (shared -> global), with no FFT stages (not for
-  ``rhs_pointwise``, which only streams);
+  spectrum's own values; for ``fft_axis``'s register passes, the first
+  pass replaced by a copy of the slot to the output and the second cut), so
+  the kernel only moves each tile in (global -> shared) and back out
+  (shared -> global), with no FFT stages (not for ``rhs_pointwise``, which
+  only streams);
 - ``nount`` (``packed_rfft`` only): the untangle cut, the stages kept;
 - one more library for each ``--edit`` of the last ``--src``: its source
   and headers with every match of REGEX replaced by REPL (several pairs
@@ -52,7 +55,13 @@ call on the same data:
   -> packed planar (1024, 512) in DIF lane order, NS2D 1024^2's field)
   and row 4 at n = 640 ((409600, 640), ``serialFFT`` 640^3's z stage, a
   mixed-radix plan);
-- ``fft_axis``: row 1 (planar float32 (256, 256, 128) along axis 0, the
+- ``fft_axis``: the benchmark cells' launches first (the 512^3 packed
+  step's y stages on (3, 512, 512, 256) and (6, 512, 512, 256) along axis
+  2, the 512^3 round trip's (512, 512, 256) along axes 0 and 1, the 3/2
+  rule's (3, 768, 768, 257) along axis 2 (1028-byte rows) and (3, 768,
+  512, 257) along axis 1, a rank's (3, 256, 1024, 512) along axis 2 and
+  (3, 1024, 256, 512) along axis 1 of the 1024^3 slab at P = 4); then row
+  1 (planar float32 (256, 256, 128) along axis 0, the
   256^3 transform's x stage), the y stage (axis 1 of the same) and the
   packed step's 3-stack ((3, 256, 256, 128), axis 2), the 3/2 rule's n =
   384 ((384, 384, 384), axes 0 and 1) and the 3/2 rule's y stage ((3,
@@ -76,7 +85,8 @@ call on the same data:
 Each time is the median of ``--iters`` CUDA-event timings; the rate counts
 each input byte read once and each output byte written once, beside its
 share of the H100's 3.35 TB/s.  Each ``full`` library's outputs are held
-against ``torch.fft`` or the twin (relative 1e-5).
+against ``torch.fft`` or the twin (relative 1e-5).  ``--only REGEX`` times
+only the cases whose row label matches.
 ``--sweep`` first holds the last ``--src``'s full library, both layouts,
 against ``torch.fft`` (1e-5) and in a round trip (1e-6), on 37 rows and on
 views that start one value into a larger buffer (bases off the bulk
@@ -129,6 +139,18 @@ UNTANGLE_R2C = [(r"packedz::untangle\(s, pitch, rho, k, h, tw_n\)",
 # store
 STAGES_C2C = [[(r"fftblock::block_fft\w*<[^;{]*\);", ""),
                (r"!fftblock::block_fft\w*<[^;{]*\)\)", "true)")]]
+# fft_axis.cu's register passes (fft_axis_kernel): the first (or only)
+# pass replaced by a copy of the slot's values to the output, the second
+# cut; a source without them (before the register passes) is left as it is
+# (the zero-width match)
+UNCUT = (r'(?=extern "C" int fft_axis_launch)', "")
+AXIS_COPY = ("for (int e = threadIdx.x; e < n << lgT; e += blockDim.x) "
+             "if ((e & (T - 1)) < w) out.put(g0 + (e >> lgT) * post + "
+             "(e & (T - 1)), in.at(e >> lgT, e & (T - 1)));")
+PASSES_C2C = [[(r"if \(r2 == 1\)\s*with_radix\(r1.*?pass_first<[^;]*\);"
+                r"\s*\}\);", AXIS_COPY), UNCUT],
+              [(r"with_radix\(r2, \[&\]\(auto R\) \{\s*pass_last<[^;]*\);"
+                r"\s*\}\);", ""), UNCUT]]
 _PACKED = (_P,) * 5 + (_L, _I, _P)
 HBM = 3.35e12                 # H100 SXM HBM3, bytes/s
 NU = 0.000625                 # the 512^3 cells' viscosity
@@ -160,7 +182,7 @@ KERNELS = {
         sources=("fft_axis.cu",),
         sigs={"fft_axis_launch": (_P,) * 5 + (_L, _I, _L, _I, _P),
               "fft_axis_c64_launch": (_P, _P, _P, _L, _I, _L, _I, _P)},
-        variants={"copy": STAGES_C2C}),
+        variants={"copy": STAGES_C2C + PASSES_C2C}),
     "curl_ifft_x": dict(
         sources=("curl_ifft_x.cu",),
         sigs={"curl_ifft_x_launch": _build._SIGNATURES["curl_ifft_x_launch"]},
@@ -255,7 +277,7 @@ def print_ptxas(key, log):
     value)."""
     name, spill = "?", ""
     for line in log.splitlines():
-        m = re.search(r"entry function .*?\d([a-z][a-z_]*_kernel)I"
+        m = re.search(r"entry function .*?\d([a-z][a-z_]*_kernel[a-z_]*)I"
                       r"((?:L(?:b|i|N[^E]*E)\d+E)+)", line)
         if m:
             name = m.group(1) + "<" + ", ".join(
@@ -785,11 +807,23 @@ def cases_packed_rfft(torch, dev, gen, stream):
 
 
 def cases_fft_axis(torch, dev, gen, stream):
-    """The same at row 1 (the x stage), the y stage and the 3-stack, n =
-    384 along axes 0 and 1 and the 3/2 rule's y stage, row 19 (complex64),
-    NS2D 1024^2's x stage and the widened plans n = 640 and 1016."""
-    out = []
+    """The same at the benchmark cells' shapes first (the 512^3 packed
+    step's 3- and 6-stack y stages, the 512^3 round trip's x and y stages,
+    the 3/2 rule's y stage on (3, 768, 768, 257) (1028-byte rows, off the
+    16-byte grid) and x stage, a rank's y and x stages of the 1024^3 slab at
+    P = 4), then row 1 (the x stage), the y stage and the 3-stack, n = 384
+    along axes 0 and 1 and the 3/2 rule's y stage, row 19 (complex64), NS2D
+    1024^2's x stage and the widened plans n = 640 and 1016.  A generator:
+    each case's arrays are freed before the next one's are made."""
     for row, shape, axis, c64 in (
+            ("packed y", (3, 512, 512, 256), 2, False),
+            ("MHD y", (6, 512, 512, 256), 2, False),
+            ("roundtrip x", (512, 512, 256), 0, False),
+            ("roundtrip y", (512, 512, 256), 1, False),
+            ("padded y", (3, 768, 768, 257), 2, False),
+            ("padded x", (3, 768, 512, 257), 1, False),
+            ("slab_p4 y", (3, 256, 1024, 512), 2, False),
+            ("slab_p4 x", (3, 1024, 256, 512), 1, False),
             ("row 1", (256, 256, 128), 0, False),
             ("y stage", (256, 256, 128), 1, False),
             ("3-stack y", (3, 256, 256, 128), 2, False),
@@ -832,10 +866,10 @@ def cases_fft_axis(torch, dev, gen, stream):
             def got(yr=yr, yi=yi, z=z, axis=axis):
                 return torch.complex(yr, yi), torch.fft.fft(z, dim=axis)
             nb = 4 * xr.numel() * 4
-        out.append((row, f"{'complex64' if c64 else 'planar'} {shape} "
-                         f"axis {axis}", call, got,
-                    lambda z=z, axis=axis: torch.fft.fft(z, dim=axis), nb))
-    return out
+        yield (row, f"{'complex64' if c64 else 'planar'} {shape} "
+                    f"axis {axis}", call, got,
+               lambda z=z, axis=axis: torch.fft.fft(z, dim=axis), nb)
+        del call, got, z
 
 
 def cases_rhs_pointwise(torch, dev, gen, stream):
@@ -898,6 +932,9 @@ def main():
                          "of the last --src")
     ap.add_argument("--sweep", action="store_true",
                     help="first check the last --src at every n")
+    ap.add_argument("--only", default="",
+                    help="time only the cases whose row label matches "
+                         "this regex")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -933,19 +970,24 @@ def main():
 
     results = []
     for row, shape, call, got, lib_fn, nb in cases(torch, dev, gen, stream):
+        if not re.search(args.only, row):
+            continue
+
         def launch(lib):
             rc = call(lib)
             if rc:
                 raise SystemExit(f"launch failed: CUDA error {rc}")
+        # every library but the copy-only cut; only the full kernel is held
+        # to 1e-5 (an --edit variant may be a deliberate cut)
         for key, lib in libs.items():
-            if key[1] == "full":
+            if key[1] != "copy":
                 launch(lib)
                 a, b = got()
                 torch.cuda.synchronize()
                 err = rel(a, b)
-                print(f"check {row} {shape} {key[0]} full: rel err "
+                print(f"check {row} {shape} {key[0]} {key[1]}: rel err "
                       f"{err:.3e}")
-                if err > 1e-5:
+                if key[1] == "full" and err > 1e-5:
                     raise SystemExit(f"the full kernel disagrees with "
                                      f"{plain}")
         order = list(libs.items())
